@@ -22,9 +22,23 @@ at 4 px/m. Phases:
    final latents atol 1e-4;
 6. the main path: embed + 20 Adam iterations with bench.py's weights, lr
    0.05, feasibility time 2; checks finite losses and that the launch
-   counters rose by exactly 1 + 12 x 20 + 12 crops and 20 + 1 footprints;
-7. prints the ``kernels`` JSON line, the path's it/s beside the card's name
-   and power limit, and last the device JSON line.
+   counters rose by exactly 1 + 12 x 20 + 12 crops and 20 + 1 footprints,
+   and that no window kernel ran;
+7. the window kernels of the gather probes, K3 ``window_crop_tiles``, K4a
+   ``window_extract`` and K4b ``window_take``: each against its plain
+   version at the probe scripts' shapes and on edge cases (windows at the
+   raster's last rows and columns, starts off the 16-byte grid or past the
+   raster, indices outside the window, both dtypes): bit-exact; each timed
+   beside its plain version, one library call and its bound. Then the
+   gather-probe path (``probes.onehot_crop.run``, ``probes.gather.run``)
+   with the window counters set to 0: every probe step bit-exact, and the
+   counters equal to the launches worked out from the probes' ``REPS`` and
+   steps. Prints the probes' G elem/s beside K1's at the main path's shape;
+8. prints the ``kernels`` JSON line, the main path's it/s beside the
+   card's name and power limit, and last the device JSON line. Each
+   kernel's ``path`` names the path its ``launches`` were counted on: the
+   open-loop main path for K1 and K2, the gather-probe path for K3 and K4
+   (which launch 0 times on the main path: ``main_path_launches``).
 
 Any failure raises, and the script exits non-zero.
 """
@@ -59,34 +73,6 @@ def card_rates(name):
         if key in name:
             return CARD_RATES[key]
     raise RuntimeError(f"no data-sheet rates for {name}")
-
-
-def cuda_ms(torch, fn, reps):
-    """Mean device ms per call over ``reps`` calls (CUDA events), after a
-    warm-up. A spin kernel holds the stream until every call is queued, so
-    the events time the device, not the host's rate of launching (one
-    wrapper call costs the host about as long as the crop kernel runs)."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    torch.cuda._sleep(10_000_000)
-    end.record()
-    torch.cuda.synchronize()
-    cycles_per_s = 10_000_000 / (start.elapsed_time(end) * 1e-3)
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - t0
-    torch.cuda._sleep(int(2 * host_s * cycles_per_s))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def bound_ms(rates, nbytes, flops):
@@ -140,6 +126,215 @@ def profile_iterations(torch, model, scene, store, emb, iters=3):
                 f"per launch on the main path ({e.count} launches)")
 
 
+def window_cases(torch, np, oc, dev):
+    """(kernel, args) pairs that hold K3, K4a and K4b against their plain
+    versions: the probe scripts' shapes and the edge cases. The first case
+    of each kernel is the shape it is timed at."""
+    rng = np.random.default_rng(7)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.int32, device=dev)
+
+    cases = []
+    for window in ("dma", "quadrant"):  # K3 at probe 1's, then probe 2's shape
+        probe = oc.PROBES[window]
+        x = oc._inputs(probe, dev)
+        N, L, W = probe["N"], probe["L"], probe["W"]
+        tiles = [oc.tileize(x[k], N, L, W) for k in ("py", "px", "outside")]
+        cases.append(("window_crop_tiles", (
+            x["flat"], *oc.tile_windows(*tiles, x["mapix"], probe["H"],
+                                        probe["Wp"], x["flat"].shape[0],
+                                        window),
+            *oc.WINDOWS[window])))
+        # edges: windows at the last rows and columns, origins off the
+        # 16-byte grid and outside the raster, indices outside the window
+        flat = x["flat"]
+        R, Wp = flat.shape
+        WR, WC = oc.WINDOWS[window]
+        row0 = i32([[R - WR, R - WR, -9, R + 50], [3, R - WR - 1, 0, 17]])
+        col0 = i32([[Wp - WC, Wp - WC - 5, 5, 10 ** 6], [-40, 1, 33, 127]])
+        ly = i32(rng.integers(-3, WR + 4, (2, 4, 1024)))
+        lx = i32(rng.integers(-3, WC + 4, (2, 4, 1024)))
+        cases.append(("window_crop_tiles", (flat, row0, col0, ly, lx, WR, WC)))
+
+    r2 = np.random.default_rng(0)  # K4a at probe 2's shape: WIN 640, i32
+    M, H, Wp, N, WIN = 2, 2048, 2048, 32, 640
+    raster = torch.from_numpy(
+        r2.integers(0, 16, (M * H, Wp)).astype(np.uint8)).to(dev)
+    y0, x0 = (i32(r2.integers(0, H - WIN, N)) for _ in range(2))
+    mapix = i32(r2.integers(0, M, N))
+    row0 = (mapix * H + y0).int()
+    cases.append(("window_extract", (raster.int(), row0, x0, WIN)))
+    cases.append(("window_extract", (raster, row0, x0, WIN)))
+    cases.append(("window_extract", (raster, row0, x0, 512)))  # probe 3
+    edge_r = i32([-5, M * H - 10, M * H + 100, 0, 7])
+    edge_c = i32([Wp - 3, -7, 5, 10 ** 6, 9])
+    for r in (raster, raster.int()):
+        cases.append(("window_extract", (r, edge_r, edge_c, WIN)))
+
+    r1 = np.random.default_rng(0)  # K4b at probe 1's shape: WIN 512, i32
+    wins = torch.from_numpy(
+        r1.integers(0, 16, (32, 512 * 512)).astype(np.int32)).to(dev)
+    idx = i32(r1.integers(0, 512 * 512, (32, 256 * 256)))
+    cases.append(("window_take", (wins, idx)))
+    cases.append(("window_take", (wins.to(torch.uint8), idx)))
+    wild = i32(rng.integers(-2 ** 31, 2 ** 31 - 1, (5, 1001)))
+    wild[:, :4] = i32([-1, 0, 512 * 512 - 1, 512 * 512])
+    for w in (wins[:5], wins[:5].to(torch.uint8)):
+        cases.append(("window_take", (w.contiguous(), wild)))
+    return cases
+
+
+def window_bytes(torch, wk, name, args):
+    """Bytes a window function must move for ``args``: its index inputs
+    and output once, and the distinct raster or window elements it reads
+    (this run's data)."""
+    if name == "window_crop_tiles":
+        flat, row0, col0, ly, lx, WR, WC = args
+        R, Wp = flat.shape
+        rows = wk.slice_start(row0, R, WR)[..., None] + ly.clamp(0, WR - 1)
+        cols = wk.slice_start(col0, Wp, WC)[..., None] + lx.clamp(0, WC - 1)
+        distinct = torch.unique(rows * Wp + cols).numel()
+        return (2 * row0.numel() * 4 + 2 * ly.numel() * 4 + ly.numel() * 4
+                + distinct)
+    if name == "window_extract":
+        raster, row0, col0, WIN = args
+        R, Wp = raster.shape
+        ar = torch.arange(WIN, device=raster.device)
+        rows = wk.slice_start(row0, R, WIN)[:, None] + ar
+        cols = wk.slice_start(col0, Wp, WIN)[:, None] + ar
+        covered = torch.zeros((R, Wp), dtype=torch.bool, device=raster.device)
+        covered[rows[:, :, None], cols[:, None, :]] = True
+        es = raster.element_size()
+        return (2 * row0.numel() * 4 + row0.numel() * WIN * WIN * es
+                + int(covered.sum()) * es)
+    wins, idx = args
+    N, S = wins.shape
+    flat = (torch.arange(N, device=idx.device)[:, None] * S
+            + idx.long().clamp(0, S - 1))
+    es = wins.element_size()
+    return idx.numel() * (4 + es) + torch.unique(flat).numel() * es
+
+
+def library_call(torch, wk, name, args):
+    """One PyTorch call that computes the kernel's function on ``args``,
+    from index tensors made beforehand (a yardstick; the port never calls
+    it). K3's returns the bytes as uint8, without the float32 convert."""
+    if name == "window_crop_tiles":
+        flat, row0, col0, ly, lx, WR, WC = args
+        R, Wp = flat.shape
+        idx = ((wk.slice_start(row0, R, WR)[..., None] + ly.clamp(0, WR - 1))
+               * Wp + wk.slice_start(col0, Wp, WC)[..., None]
+               + lx.clamp(0, WC - 1))
+        return lambda: torch.take(flat, idx)
+    if name == "window_extract":
+        raster, row0, col0, WIN = args
+        R, Wp = raster.shape
+        ar = torch.arange(WIN, device=raster.device)
+        rows = (wk.slice_start(row0, R, WIN)[:, None] + ar)[:, :, None]
+        cols = (wk.slice_start(col0, Wp, WIN)[:, None] + ar)[:, None, :]
+        return lambda: raster[rows, cols]
+    wins, idx = args
+    idx64 = idx.long().clamp(0, wins.shape[1] - 1)
+    return lambda: torch.gather(wins, 1, idx64)
+
+
+WINDOW_REPLACES = {
+    "window_crop_tiles": "scripts/probe_onehot_crop.py:88",
+    "window_extract": "scripts/pallas_gather_probe2.py:64",
+    "window_take": "scripts/pallas_gather_probe.py:59",
+}
+
+
+def window_phase(torch, rates, card, k1_gelem_s):
+    """Phase 7: K3, K4a and K4b against their plain versions, timed beside
+    their bounds; then the gather-probe path through them.
+
+    :return: the three ``kernels`` entries, the probes' JSON line
+    """
+    import numpy as np
+
+    from strive_tpu_torch.probes import gather
+    from strive_tpu_torch.probes import onehot_crop as oc
+    from strive_tpu_torch.probes import window_kernels as wk
+    from strive_tpu_torch.utils.timing import calls, cuda_ms
+
+    dev = torch.device("cuda")
+    before = dict(wk.LAUNCHES)
+    launched = dict.fromkeys(wk.LAUNCHES, 0)
+    entries, timed = {}, set()
+    for name, args in window_cases(torch, np, oc, dev):
+        got = getattr(wk, name)(*args)
+        want = getattr(wk, f"{name}_plain")(*args)
+        torch.cuda.synchronize()
+        launched[name] += 1
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"{name} differs from plain: "
+                                 f"{int((got != want).sum())} values")
+        err = float((got.double() - want.double()).abs().amax())
+        entry = entries.setdefault(name, dict(
+            name=name, route="cuda",
+            source="strive_tpu_torch/csrc/window.cu",
+            replaces=WINDOW_REPLACES[name], max_abs_err=0.0, cases=0))
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry["cases"] += 1
+        if name in timed:
+            continue
+        timed.add(name)
+        kern = getattr(wk, name)
+        plain = getattr(wk, f"{name}_plain")
+        entry["ms"] = cuda_ms(lambda: kern(*args), 200)
+        launched[name] += calls(200)
+        entry["plain_ms"] = cuda_ms(lambda: plain(*args), 20)
+        entry["library_ms"] = cuda_ms(library_call(torch, wk, name, args), 20)
+        entry["bound_ms"], entry["bound_by"] = bound_ms(
+            rates, window_bytes(torch, wk, name, args), 0)
+        entry["elements"] = got.numel()
+    delta = {k: wk.LAUNCHES[k] - before[k] for k in wk.LAUNCHES}
+    if delta != launched:
+        raise AssertionError(f"window launches {delta}, expected {launched}")
+    for e in entries.values():
+        log(f"{e['name']} bit-exact on {e['cases']} cases; {e['ms']:.4f} ms "
+            f"(plain {e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} "
+            f"ms, bound {e['bound_ms']:.4f} ms by {e['bound_by']})")
+
+    # the gather-probe path, counted from zero
+    for k in wk.LAUNCHES:
+        wk.LAUNCHES[k] = 0
+    crop = oc.run("cuda")
+    gath = gather.run("cuda")
+    launches = dict(wk.LAUNCHES)
+    # per crop window: K3 and K4b once each to check, then two timed paths
+    # through each; per gather step: one call to check, then the timed calls
+    per_window = 1 + 2 * calls(oc.REPS)
+    expected = {"window_crop_tiles": per_window * len(oc.PROBES),
+                "window_take": per_window * len(oc.PROBES),
+                "window_extract": 0}
+    for s in gath["steps"]:
+        for k in ("take", "extract"):
+            if k in s["step"]:
+                expected[f"window_{k}"] += 1 + calls(gather.REPS)
+    if launches != expected or not all(launches.values()):
+        raise AssertionError(f"probe launches {launches}, expected {expected}")
+    for line in oc.format_lines(crop) + gath["lines"]:
+        log(line)
+    for e in entries.values():
+        e["launches"] = launches[e["name"]]
+        e["path"] = "gather probes (probes.onehot_crop.run + gather.run)"
+        e["main_path_launches"] = 0
+    probes = {
+        "probes": "onehot_crop + gather", "card": card,
+        "k1_map_crop_gelem_s": k1_gelem_s,
+        "onehot_crop": {w: {k: v for k, v in crop[w].items()
+                            if k.endswith("gelem_s") or k.endswith("_ms")}
+                        for w in oc.PROBES},
+        "gather": {f"probe{s['probe']} {s['step']}": s["gelem_s"]
+                   for s in gath["steps"]},
+        "launches": launches,
+    }
+    return entries, probes
+
+
 def main():
     # one card: the first of those visible, numbered as nvidia-smi numbers it
     os.environ.setdefault("CUDA_DEVICE_ORDER", "PCI_BUS_ID")
@@ -167,7 +362,9 @@ def main():
                                             state_normalizer_for)
     from strive_tpu_torch.optim.adv import run_adv_gen_optim
     from strive_tpu_torch.scene import pad_scene_arrays
+    from strive_tpu_torch.probes import window_kernels
     from strive_tpu_torch.utils import build
+    from strive_tpu_torch.utils.timing import cuda_ms
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -175,7 +372,7 @@ def main():
 
     # --- 2. build, TF32 off ------------------------------------------------
     t0 = time.time()
-    build.build([crop_kernel.SOURCE])
+    build.build([crop_kernel.SOURCE, window_kernels.SOURCE])
     log(f"kernels built in {time.time() - t0:.1f} s")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -221,8 +418,8 @@ def main():
             raise AssertionError(
                 f"map_crop differs from plain: {int((got != ref).sum())} "
                 f"values, layout {args[-1]}, C {args[-2]}")
-    k1_ms = cuda_ms(torch, lambda: crop_kernel.map_crop(*k1_args), 200)
-    k1_plain_ms = cuda_ms(torch, lambda: crop_kernel.map_crop_plain(*k1_args),
+    k1_ms = cuda_ms(lambda: crop_kernel.map_crop(*k1_args), 200)
+    k1_plain_ms = cuda_ms(lambda: crop_kernel.map_crop_plain(*k1_args),
                           20)
     xys = queries.rotate_grid(lo[None, :, None], wo[None, None, :],
                               pos[:, :2], pos[:, 2:4])
@@ -274,10 +471,10 @@ def main():
             raise AssertionError(f"coll_pt differs by {err} (tol "
                                  f"{2e-6 * scale})")
         k2_err = max(k2_err, err)
-    k2_ms = cuda_ms(torch, lambda: crop_kernel.footprint_coll_point(*k2_args),
+    k2_ms = cuda_ms(lambda: crop_kernel.footprint_coll_point(*k2_args),
                     200)
     k2_plain_ms = cuda_ms(
-        torch, lambda: crop_kernel.footprint_coll_point_plain(*k2_args), 20)
+        lambda: crop_kernel.footprint_coll_point_plain(*k2_args), 20)
     P = cars.shape[0]
     samples = queries.gen_car_coords(cars[:, :2], cars[:, 2:4], 39, 16,
                                      ls=lw[:, 0], ws=lw[:, 1])
@@ -332,14 +529,16 @@ def main():
         return out
 
     main_path(2)  # warm-up: cuDNN plans, allocator
-    for k in crop_kernel.LAUNCHES:
-        crop_kernel.LAUNCHES[k] = 0
+    for counts in (crop_kernel.LAUNCHES, window_kernels.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
     t0 = time.perf_counter()
     z, result, min_agt, min_t, losses, pred = main_path(ITERS)
     wall = time.perf_counter() - t0
-    launches = dict(crop_kernel.LAUNCHES)
+    launches = {**crop_kernel.LAUNCHES, **window_kernels.LAUNCHES}
     expected = {"map_crop": 1 + FT * ITERS + FT,
-                "footprint_coll_point": ITERS + 1}
+                "footprint_coll_point": ITERS + 1,
+                **dict.fromkeys(window_kernels.LAUNCHES, 0)}
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
     if losses.shape != (ITERS,) or not bool(torch.isfinite(losses).all()):
@@ -365,6 +564,13 @@ def main():
 
     for k, entry in kernels.items():
         entry["launches"] = launches[k]
+        entry["path"] = "main path (embed + open-loop adv optimization)"
+
+    # --- 7. K3, K4a, K4b and the gather-probe path -------------------------
+    k1_gelem_s = n_pix / (k1_ms * 1e-3) / 1e9
+    window_entries, probes = window_phase(torch, rates, card, k1_gelem_s)
+    kernels.update(window_entries)
+    print(json.dumps(probes))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"main_path": "embed + open-loop adv optimization",
                       "B": B, "NA": NA, "FT": FT, "crop_px": MAP_PX,

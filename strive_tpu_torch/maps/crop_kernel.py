@@ -16,11 +16,10 @@ the oracle of the CUDA tests.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ..utils import build
+from ..utils import launch
+from ..utils.launch import INT as _I, PTR as _P
 from . import queries
 
 SOURCE = "crop"
@@ -28,9 +27,7 @@ SOURCE = "crop"
 # launches per kernel, counted where the kernel is launched and nowhere else
 LAUNCHES = {"map_crop": 0, "footprint_coll_point": 0}
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_SIGNATURES = {
+_LIB = launch.Library(SOURCE, {
     # packed, M, H, W, dx, pos, mapix, lo, wo, N, L, Wc, C, nhwc, out, stream
     "strive_map_crop": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _P, _P],
@@ -38,45 +35,12 @@ _SIGNATURES = {
     # coll_pt, valid, frac, stream
     "strive_footprint_coll_point": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _P, _P, _P, _P],
-}
-_lib_handle = None
-
-
-def _lib():
-    global _lib_handle
-    if _lib_handle is None:
-        lib = build.load(SOURCE)
-        for fn, argtypes in _SIGNATURES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.strive_cuda_error.argtypes = [_I]
-        lib.strive_cuda_error.restype = ctypes.c_char_p
-        _lib_handle = lib
-    return _lib_handle
-
-
-def _check(name, t, dtype, ndim, device, last=None):
-    if not isinstance(t, torch.Tensor) or not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.dim() != ndim or (last is not None and t.shape[-1] != last):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _raise_on(err, fn):
-    if err != 0:
-        msg = _lib().strive_cuda_error(err).decode()
-        raise RuntimeError(f"{fn} launch failed: cudaError {err} ({msg})")
+})
 
 
 def _check_raster(packed, dx, device):
-    _check("packed", packed, torch.uint8, 3, device)
-    _check("dx", dx, torch.float32, 2, device, last=2)
+    launch.check("packed", packed, torch.uint8, 3, device)
+    launch.check("dx", dx, torch.float32, 2, device, last=2)
     if dx.shape[0] != packed.shape[0]:
         raise ValueError("dx must have one row per map")
 
@@ -94,10 +58,10 @@ def map_crop(packed, dx, pos, mapix, lo, wo, num_channels, layout="nhwc"):
     """
     device = pos.device
     _check_raster(packed, dx, device)
-    _check("pos", pos, torch.float32, 2, device, last=4)
-    _check("mapix", mapix, torch.int64, 1, device)
-    _check("lo", lo, torch.float32, 1, device)
-    _check("wo", wo, torch.float32, 1, device)
+    launch.check("pos", pos, torch.float32, 2, device, last=4)
+    launch.check("mapix", mapix, torch.int64, 1, device)
+    launch.check("lo", lo, torch.float32, 1, device)
+    launch.check("wo", wo, torch.float32, 1, device)
     if layout not in ("nhwc", "nchw"):
         raise ValueError(f"unknown layout {layout}")
     C = int(num_channels)
@@ -113,12 +77,10 @@ def map_crop(packed, dx, pos, mapix, lo, wo, num_channels, layout="nhwc"):
     if N * L * Wc == 0:
         return out
     M, H, W = packed.shape
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = _lib().strive_map_crop(
-        packed.data_ptr(), M, H, W, dx.data_ptr(), pos.data_ptr(),
-        mapix.data_ptr(), lo.data_ptr(), wo.data_ptr(), N, L, Wc, C,
-        int(layout == "nhwc"), out.data_ptr(), stream)
-    _raise_on(err, "map_crop")
+    _LIB.launch(
+        "strive_map_crop", packed.data_ptr(), M, H, W, dx.data_ptr(),
+        pos.data_ptr(), mapix.data_ptr(), lo.data_ptr(), wo.data_ptr(), N, L,
+        Wc, C, int(layout == "nhwc"), out.data_ptr(), launch.stream(device))
     LAUNCHES["map_crop"] += 1
     return out
 
@@ -142,11 +104,11 @@ def footprint_coll_point(packed, dx, cars, lw, mapix, lin_l, lin_w, bit=0):
     """
     device = cars.device
     _check_raster(packed, dx, device)
-    _check("cars", cars, torch.float32, 2, device, last=4)
-    _check("lw", lw, torch.float32, 2, device, last=2)
-    _check("mapix", mapix, torch.int64, 1, device)
-    _check("lin_l", lin_l, torch.float32, 1, device)
-    _check("lin_w", lin_w, torch.float32, 1, device)
+    launch.check("cars", cars, torch.float32, 2, device, last=4)
+    launch.check("lw", lw, torch.float32, 2, device, last=2)
+    launch.check("mapix", mapix, torch.int64, 1, device)
+    launch.check("lin_l", lin_l, torch.float32, 1, device)
+    launch.check("lin_w", lin_w, torch.float32, 1, device)
     P, L, Wg = cars.shape[0], lin_l.shape[0], lin_w.shape[0]
     if lw.shape[0] != P or mapix.shape[0] != P:
         raise ValueError("lw and mapix must have one row per car")
@@ -160,13 +122,12 @@ def footprint_coll_point(packed, dx, cars, lw, mapix, lin_l, lin_w, bit=0):
     if P == 0:
         return coll_pt, valid, frac
     M, H, W = packed.shape
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = _lib().strive_footprint_coll_point(
-        packed.data_ptr(), M, H, W, dx.data_ptr(), cars.data_ptr(),
-        lw.data_ptr(), mapix.data_ptr(), lin_l.data_ptr(), lin_w.data_ptr(),
-        P, L, Wg, int(bit), coll_pt.data_ptr(), valid.data_ptr(),
-        frac.data_ptr(), stream)
-    _raise_on(err, "footprint_coll_point")
+    _LIB.launch(
+        "strive_footprint_coll_point", packed.data_ptr(), M, H, W,
+        dx.data_ptr(), cars.data_ptr(), lw.data_ptr(), mapix.data_ptr(),
+        lin_l.data_ptr(), lin_w.data_ptr(), P, L, Wg, int(bit),
+        coll_pt.data_ptr(), valid.data_ptr(), frac.data_ptr(),
+        launch.stream(device))
     LAUNCHES["footprint_coll_point"] += 1
     return coll_pt, valid, frac
 

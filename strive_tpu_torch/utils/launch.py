@@ -1,0 +1,73 @@
+"""Shared pieces of the ctypes kernel wrappers.
+
+:class:`Library` binds the plain C entry points of one ``csrc/<name>.cu``
+(built at the first launch, never at import) and raises when a launch
+returns a CUDA error; :func:`check` is the input check every wrapper runs
+before it launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+PTR = ctypes.c_void_p
+INT = ctypes.c_int
+
+
+def check(name, t, dtypes, ndim, device, last=None):
+    """Raise unless ``t`` is a contiguous CUDA tensor on ``device`` with one
+    of ``dtypes`` (a dtype or a tuple), ``ndim`` dims and, if given, a last
+    dim of ``last``."""
+    dtypes = dtypes if isinstance(dtypes, tuple) else (dtypes,)
+    if not isinstance(t, torch.Tensor) or not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} must be {' or '.join(map(str, dtypes))}, "
+                         f"got {t.dtype}")
+    if t.dim() != ndim or (last is not None and t.shape[-1] != last):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+class Library:
+    """The entry points of ``csrc/<source>.cu``.
+
+    :param signatures: {C function: ctypes argtypes}; each returns the
+        launch's ``cudaError_t`` as an int
+    """
+
+    def __init__(self, source, signatures):
+        self.source = source
+        self._signatures = signatures
+        self._lib = None
+
+    def _load(self):
+        if self._lib is None:
+            lib = build.load(self.source)
+            for fn, argtypes in self._signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.strive_cuda_error.argtypes = [INT]
+            lib.strive_cuda_error.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def launch(self, fn, *args):
+        """Call the C entry point ``fn``; raise if the launch failed."""
+        lib = self._load()
+        err = getattr(lib, fn)(*args)
+        if err != 0:
+            msg = lib.strive_cuda_error(err).decode()
+            raise RuntimeError(f"{fn} launch failed: cudaError {err} ({msg})")
+
+
+def stream(device):
+    """The current CUDA stream of ``device`` as the C entry points take it."""
+    return torch.cuda.current_stream(device).cuda_stream
