@@ -23,7 +23,7 @@ at 4 px/m. Phases:
 6. the main path: embed + 20 Adam iterations with bench.py's weights, lr
    0.05, feasibility time 2; checks finite losses and that the launch
    counters rose by exactly 1 + 12 x 20 + 12 crops and 20 + 1 footprints,
-   and that no window kernel ran;
+   and that no window or bisect kernel ran;
 7. the window kernels of the gather probes, K3 ``window_crop_tiles``, K4a
    ``window_extract`` and K4b ``window_take``: each against its plain
    version at the probe scripts' shapes and on edge cases (windows at the
@@ -34,11 +34,25 @@ at 4 px/m. Phases:
    with the window counters set to 0: every probe step bit-exact, and the
    counters equal to the launches worked out from the probes' ``REPS`` and
    steps. Prints the probes' G elem/s beside K1's at the main path's shape;
-8. prints the ``kernels`` JSON line, the main path's it/s beside the
-   card's name and power limit, and last the device JSON line. Each
-   kernel's ``path`` names the path its ``launches`` were counted on: the
-   open-loop main path for K1 and K2, the gather-probe path for K3 and K4
-   (which launch 0 times on the main path: ``main_path_launches``).
+8. the Mosaic-bisect kernels, K5a ``scale_rows``, K5b ``window_convert``,
+   K5c ``window_sums`` and K5d ``onehot_rows``: each against its plain
+   version at the bisect scripts' shapes, at the gather-probe path's shapes
+   (2048 windows of 64x192 on the (2048, 1024) raster; 2048 one-hot tiles;
+   (8192, 1024) f32) and on edge cases (windows at the last rows and
+   columns, starts off the 16-byte grid or past the array, sums that wrap
+   past 2^31 both ways, indices outside [0, R), odd widths, both source
+   dtypes): bit-exact. Each timed at the scripts' shape beside the launch
+   floor (``torch.cuda._sleep(0)``), and at the path's shape beside its
+   plain version, one library call and its bound. Then the 19 variants
+   (``probes.mosaic_bisect.run``) with the K5 counters set to 0: every
+   variant correct, and the counters equal to the launches worked out from
+   ``REPS`` and each variant's kernel;
+9. prints the probes' and the variants' JSON lines, the ``kernels`` JSON
+   line, the main path's it/s beside the card's name and power limit, and
+   last the device JSON line. Each kernel's ``path`` names the path its
+   ``launches`` were counted on: the open-loop main path for K1 and K2,
+   the gather-probe path for K3 and K4, the Mosaic-bisect probes for K5
+   (K3-K5 launch 0 times on the main path: ``main_path_launches``).
 
 Any failure raises, and the script exits non-zero.
 """
@@ -219,7 +233,8 @@ def window_bytes(torch, wk, name, args):
 def library_call(torch, wk, name, args):
     """One PyTorch call that computes the kernel's function on ``args``,
     from index tensors made beforehand (a yardstick; the port never calls
-    it). K3's returns the bytes as uint8, without the float32 convert."""
+    it). K3's returns the bytes as uint8, without the float32 convert
+    (``library_f32_ms`` times it with the convert)."""
     if name == "window_crop_tiles":
         flat, row0, col0, ly, lx, WR, WC = args
         R, Wp = flat.shape
@@ -286,7 +301,10 @@ def window_phase(torch, rates, card, k1_gelem_s):
         entry["ms"] = cuda_ms(lambda: kern(*args), 200)
         launched[name] += calls(200)
         entry["plain_ms"] = cuda_ms(lambda: plain(*args), 20)
-        entry["library_ms"] = cuda_ms(library_call(torch, wk, name, args), 20)
+        lib = library_call(torch, wk, name, args)
+        entry["library_ms"] = cuda_ms(lib, 20)
+        if name == "window_crop_tiles":  # with K3's float32 out: two calls
+            entry["library_f32_ms"] = cuda_ms(lambda: lib().float(), 20)
         entry["bound_ms"], entry["bound_by"] = bound_ms(
             rates, window_bytes(torch, wk, name, args), 0)
         entry["elements"] = got.numel()
@@ -335,6 +353,262 @@ def window_phase(torch, rates, card, k1_gelem_s):
     return entries, probes
 
 
+BISECT_REPLACES = {
+    "scale_rows": "scripts/probe_mosaic_bisect.py:30",
+    "window_convert": "scripts/probe_mosaic_bisect.py:91",
+    "window_sums": "scripts/probe_mosaic_bisect.py:158",
+    "onehot_rows": "scripts/probe_mosaic_bisect.py:42",
+}
+# the variant whose inputs each K5 kernel is timed at, at the scripts' size
+BISECT_SCRIPT_SHAPE = {"scale_rows": "v_fori_when_rem",
+                       "window_convert": "v_dma_dynamic",
+                       "window_sums": "v_prefetch_indexmap",
+                       "onehot_rows": "v_iota_compare_matmul"}
+BISECT_LIBRARY = {
+    "scale_rows": "torch.mul with a broadcast factor (one call)",
+    "window_convert": "advanced indexing, then .to(torch.int32) (two calls)",
+    "window_sums": "advanced indexing of a strided (unfold) view of every "
+                   "window, then torch.sum (two calls)",
+    "onehot_rows": "torch.gather over w.float().transpose(1, 2) (one call)",
+}
+
+
+def bisect_path_inputs(torch, np, oc, bk, dev):
+    """K5's inputs at the gather-probe path's shape: the 2048 window origins
+    (32 agents x 64 tiles) of probe_onehot_crop.py's 64x192 window on its
+    (2048, 1024) uint8 raster, and each tile's window-local rows; K5a on
+    (8192, 1024) f32 in groups of 8 rows (the bytes of K1's output)."""
+    probe = oc.PROBES["dma"]
+    x = oc._inputs(probe, dev)
+    N, L, W = probe["N"], probe["L"], probe["W"]
+    tiles = [oc.tileize(x[k], N, L, W) for k in ("py", "px", "outside")]
+    row0, col0, ly, _ = oc.tile_windows(*tiles, x["mapix"], probe["H"],
+                                        probe["Wp"], x["flat"].shape[0],
+                                        "dma")
+    WR, WC = oc.WINDOWS["dma"]
+    flat = x["flat"]
+    r, c = row0.reshape(-1).contiguous(), col0.reshape(-1).contiguous()
+    w = bk.window_convert_plain(flat, r, c, WR, WC, torch.float32).to(
+        torch.bfloat16)
+    rng = np.random.default_rng(8)
+    xs = torch.from_numpy(rng.standard_normal((8192, 1024)).astype(
+        np.float32)).to(dev)
+    fs = torch.from_numpy(rng.standard_normal(1024).astype(np.float32)).to(
+        dev)
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    return {"scale_rows": (xs, fs, 8),
+            "window_convert": (flat, r, c, WR, WC, torch.int32),
+            "window_sums": (flat, r[:, None].contiguous(),
+                            c[:, None].contiguous(), one, WR, WC),
+            "onehot_rows": (w, ly.reshape(-1, ly.shape[-1]).contiguous())}
+
+
+def bisect_edge_cases(torch, np, dev):
+    """(kernel, args) pairs at K5's edges: windows at the last rows and
+    columns, starts off the 16-byte grid, negative or past the array, sums
+    that wrap past 2^31 both ways, indices below 0 and at or above R, odd
+    widths, both source dtypes."""
+    rng = np.random.default_rng(9)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.int32, device=dev)
+
+    def tensor(a):
+        return torch.from_numpy(a).to(dev)
+
+    cases = [
+        ("scale_rows", (tensor(rng.standard_normal((9, 1001)).astype(
+            np.float32)), tensor(rng.standard_normal(3).astype(np.float32)),
+            3)),
+        ("scale_rows", (i32(rng.integers(-2 ** 31, 2 ** 31, (12, 256))),
+                        i32(rng.integers(-2 ** 31, 2 ** 31, 3)), 4)),
+    ]
+    R, C, WR = 300, 1000, 64
+    u8 = tensor(rng.integers(0, 256, (R, C)).astype(np.uint8))
+    f32 = tensor(rng.standard_normal((R, C)).astype(np.float32))
+    for WC in (192, 61):
+        row0 = i32([R - WR, R - WR - 1, -9, R + 50, 3, 0, -R - 7, 37])
+        col0 = i32([C - WC, C - WC - 5, 5, 10 ** 6, -40, 1, 33, 127])
+        for src, out in ((u8, torch.int32), (u8, torch.float32),
+                         (f32, torch.float32)):
+            for side in (False, True):
+                cases.append(("window_convert",
+                              (src, row0, col0, WR, WC, out, side)))
+    big = i32(rng.integers(2 ** 28, 2 ** 31, (256, 640)))
+    big[:128] *= -1
+    for src in (big, u8):
+        row0 = i32(rng.integers(-src.shape[0], 2 * src.shape[0], (37, 3)))
+        col0 = i32(rng.integers(-src.shape[1], 2 * src.shape[1], (37, 3)))
+        cases.append(("window_sums", (src, row0, col0, i32([1, -1, 3]), 64,
+                                      192)))
+    T, Rw, Cw, P = 5, 64, 192, 1000
+    w = tensor(rng.standard_normal((T, Rw, Cw)).astype(np.float32)).to(
+        torch.bfloat16)
+    idx = i32(rng.integers(-3, Rw + 3, (T, P)))
+    idx[:, :6] = i32([-1, 0, Rw - 1, Rw, -2 ** 31, 2 ** 31 - 1])
+    cases.append(("onehot_rows", (w, idx)))
+    return cases
+
+
+def bisect_bytes(torch, bk, name, args):
+    """Bytes a K5 function must move for ``args``: its inputs and output
+    once, counting only the distinct source elements its windows or indices
+    touch (this run's data)."""
+    if name == "scale_rows":
+        x, f, _ = args
+        return 2 * x.numel() * x.element_size() + f.numel() * f.element_size()
+    if name == "onehot_rows":
+        w, idx = args
+        T, R, C = w.shape
+        valid = (idx >= 0) & (idx < R)
+        t = torch.arange(T, device=idx.device)[:, None].expand_as(idx)
+        rows = torch.unique((t * R + idx)[valid]).numel()
+        return rows * C * 2 + idx.numel() * 4 + T * C * idx.shape[1] * 4
+    src, row0, col0 = args[:3]
+    WR, WC = args[3:5] if name == "window_convert" else args[4:6]
+    R, C = src.shape
+    dev = src.device
+    rows = bk.slice_start(row0.reshape(-1), R, WR)[:, None] + torch.arange(
+        WR, device=dev)
+    cols = bk.slice_start(col0.reshape(-1), C, WC)[:, None] + torch.arange(
+        WC, device=dev)
+    covered = torch.zeros((R, C), dtype=torch.bool, device=dev)
+    covered[rows[:, :, None], cols[:, None, :]] = True
+    nbytes = int(covered.sum()) * src.element_size() + 2 * row0.numel() * 4
+    if name == "window_convert":
+        return nbytes + row0.numel() * WR * WC * 4
+    return nbytes + args[3].numel() * 4 + row0.shape[0] * 4
+
+
+def bisect_library_call(torch, bk, name, args):
+    """One PyTorch call (two where no single call exists; see
+    ``BISECT_LIBRARY``) that computes the K5 function on ``args``, from
+    index tensors and views made beforehand; the port never calls it."""
+    if name == "scale_rows":
+        x, f, G = args
+        xv, fv = x.view(-1, G, x.shape[1]), f[:, None, None]
+        return lambda: torch.mul(xv, fv)
+    if name == "onehot_rows":
+        w, idx = args
+        T, R, C = w.shape
+        wt = w.float().transpose(1, 2)
+        index = idx.long().clamp(0, R - 1)[:, None, :].expand(T, C,
+                                                               idx.shape[1])
+        return lambda: torch.gather(wt, 2, index)
+    src, row0, col0 = args[:3]
+    WR, WC = args[3:5] if name == "window_convert" else args[4:6]
+    R, C = src.shape
+    r = bk.slice_start(row0.reshape(-1), R, WR)
+    c = bk.slice_start(col0.reshape(-1), C, WC)
+    if name == "window_convert":
+        rows = (r[:, None] + torch.arange(WR, device=src.device))[:, :, None]
+        cols = (c[:, None] + torch.arange(WC, device=src.device))[:, None, :]
+        return lambda: src[rows, cols].to(torch.int32)
+    view = src.unfold(0, WR, 1).unfold(1, WC, 1)  # every window, no copy
+    return lambda: torch.sum(view[r, c], dim=(1, 2))
+
+
+def bisect_phase(torch, rates, card):
+    """Phase 8: K5a-K5d against their plain versions at the scripts'
+    shapes, the gather-probe path's shapes and the edge cases; timed at
+    both shapes beside the launch floor, their plain versions, one library
+    call and their bounds; then the Mosaic-bisect probes through them.
+
+    :return: the four ``kernels`` entries, the variants' JSON line
+    """
+    import numpy as np
+
+    from strive_tpu_torch.probes import bisect_kernels as bk
+    from strive_tpu_torch.probes import mosaic_bisect as mb
+    from strive_tpu_torch.probes import onehot_crop as oc
+    from strive_tpu_torch.utils.timing import calls, cuda_ms
+
+    dev = torch.device("cuda")
+    variants = {v.__name__: v for _, _, v in mb.VARIANTS}
+    script_args = {k: variants[v](dev).args
+                   for k, v in BISECT_SCRIPT_SHAPE.items()}
+    path_args = bisect_path_inputs(torch, np, oc, bk, dev)
+    cases = ([(k, a) for k, a in script_args.items()]
+             + [(k, a) for k, a in path_args.items()]
+             + bisect_edge_cases(torch, np, dev))
+    before = dict(bk.LAUNCHES)
+    launched = dict.fromkeys(bk.LAUNCHES, 0)
+    entries = {k: dict(name=k, route="cuda",
+                       source="strive_tpu_torch/csrc/bisect.cu",
+                       replaces=BISECT_REPLACES[k], max_abs_err=0.0, cases=0)
+               for k in bk.LAUNCHES}
+    for name, args in cases:
+        got = getattr(bk, name)(*args)
+        want = getattr(bk, f"{name}_plain")(*args)
+        torch.cuda.synchronize()
+        launched[name] += 1
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"{name} differs from plain: "
+                                 f"{int((got != want).sum())} values")
+        diff = (got - want) if got.is_floating_point() \
+            else (got.long() - want.long())
+        e = entries[name]
+        e["max_abs_err"] = max(e["max_abs_err"], float(diff.abs().amax()))
+        e["cases"] += 1
+        del got, want, diff
+    floor = cuda_ms(lambda: torch.cuda._sleep(0), 200)
+    for name, e in entries.items():
+        kern = getattr(bk, name)
+        plain = getattr(bk, f"{name}_plain")
+
+        def bound(args):  # only K5a does float operations: one multiply
+            return bound_ms(rates, bisect_bytes(torch, bk, name, args),
+                            args[0].numel() if name == "scale_rows" else 0)
+
+        a = script_args[name]
+        e["script_shape"] = BISECT_SCRIPT_SHAPE[name]
+        e["script_ms"] = cuda_ms(lambda: kern(*a), 200)
+        e["script_bound_ms"] = bound(a)[0]
+        e["launch_floor_ms"] = floor
+        a = path_args[name]
+        e["ms"] = cuda_ms(lambda: kern(*a), 50)
+        launched[name] += calls(200) + calls(50)
+        e["plain_ms"] = cuda_ms(lambda: plain(*a), 5)
+        e["library_ms"] = cuda_ms(bisect_library_call(torch, bk, name, a), 5)
+        e["library_call"] = BISECT_LIBRARY[name]
+        e["bound_ms"], e["bound_by"] = bound(a)
+        log(f"{name} bit-exact on {e['cases']} cases; path shape "
+            f"{e['ms']:.4f} ms (plain {e['plain_ms']:.4f} ms, library "
+            f"{e['library_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms by "
+            f"{e['bound_by']}); script shape ({e['script_shape']}) "
+            f"{e['script_ms']:.4f} ms (bound {e['script_bound_ms']:.5f} ms), "
+            f"launch floor {floor:.4f} ms")
+        torch.cuda.empty_cache()
+    delta = {k: bk.LAUNCHES[k] - before[k] for k in bk.LAUNCHES}
+    if delta != launched:
+        raise AssertionError(f"bisect launches {delta}, expected {launched}")
+
+    # the Mosaic-bisect probes, counted from zero
+    for k in bk.LAUNCHES:
+        bk.LAUNCHES[k] = 0
+    res = mb.run("cuda")
+    launches = dict(bk.LAUNCHES)
+    expected = dict.fromkeys(bk.LAUNCHES, 0)
+    for v in res["variants"]:  # one call to check, then the timed calls
+        expected[v["kernel"]] += 1 + calls(mb.REPS)
+    if launches != expected or not all(launches.values()):
+        raise AssertionError(f"bisect probe launches {launches}, expected "
+                             f"{expected}")
+    if not all(v["correct"] for v in res["variants"]) \
+            or len(res["variants"]) != 19:
+        raise AssertionError("a Mosaic-bisect variant is not correct")
+    for line in res["lines"]:
+        log(line)
+    for e in entries.values():
+        e["launches"] = launches[e["name"]]
+        e["path"] = "mosaic-bisect probes (probes.mosaic_bisect.run)"
+        e["main_path_launches"] = 0
+    line = {"mosaic_bisect": "19 variants", "card": card,
+            "variants_ms": {v["name"]: v["ms"] for v in res["variants"]},
+            "launches": launches}
+    return entries, line
+
+
 def main():
     # one card: the first of those visible, numbered as nvidia-smi numbers it
     os.environ.setdefault("CUDA_DEVICE_ORDER", "PCI_BUS_ID")
@@ -362,7 +636,7 @@ def main():
                                             state_normalizer_for)
     from strive_tpu_torch.optim.adv import run_adv_gen_optim
     from strive_tpu_torch.scene import pad_scene_arrays
-    from strive_tpu_torch.probes import window_kernels
+    from strive_tpu_torch.probes import bisect_kernels, window_kernels
     from strive_tpu_torch.utils import build
     from strive_tpu_torch.utils.timing import cuda_ms
 
@@ -372,7 +646,8 @@ def main():
 
     # --- 2. build, TF32 off ------------------------------------------------
     t0 = time.time()
-    build.build([crop_kernel.SOURCE, window_kernels.SOURCE])
+    build.build([crop_kernel.SOURCE, window_kernels.SOURCE,
+                 bisect_kernels.SOURCE])
     log(f"kernels built in {time.time() - t0:.1f} s")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -529,16 +804,19 @@ def main():
         return out
 
     main_path(2)  # warm-up: cuDNN plans, allocator
-    for counts in (crop_kernel.LAUNCHES, window_kernels.LAUNCHES):
+    counters = (crop_kernel.LAUNCHES, window_kernels.LAUNCHES,
+                bisect_kernels.LAUNCHES)
+    for counts in counters:
         for k in counts:
             counts[k] = 0
     t0 = time.perf_counter()
     z, result, min_agt, min_t, losses, pred = main_path(ITERS)
     wall = time.perf_counter() - t0
-    launches = {**crop_kernel.LAUNCHES, **window_kernels.LAUNCHES}
+    launches = {k: v for counts in counters for k, v in counts.items()}
     expected = {"map_crop": 1 + FT * ITERS + FT,
                 "footprint_coll_point": ITERS + 1,
-                **dict.fromkeys(window_kernels.LAUNCHES, 0)}
+                **dict.fromkeys(window_kernels.LAUNCHES, 0),
+                **dict.fromkeys(bisect_kernels.LAUNCHES, 0)}
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
     if losses.shape != (ITERS,) or not bool(torch.isfinite(losses).all()):
@@ -570,7 +848,12 @@ def main():
     k1_gelem_s = n_pix / (k1_ms * 1e-3) / 1e9
     window_entries, probes = window_phase(torch, rates, card, k1_gelem_s)
     kernels.update(window_entries)
+
+    # --- 8. K5a-K5d and the Mosaic-bisect probes ---------------------------
+    bisect_entries, bisect = bisect_phase(torch, rates, card)
+    kernels.update(bisect_entries)
     print(json.dumps(probes))
+    print(json.dumps(bisect))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"main_path": "embed + open-loop adv optimization",
                       "B": B, "NA": NA, "FT": FT, "crop_px": MAP_PX,
