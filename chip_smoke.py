@@ -14,9 +14,12 @@ at 4 px/m. Phases:
 3. K1 ``map_crop`` against its plain version at the main path's shape and
    on map-edge / NaN-pose / small-crop cases: bit-exact;
 4. K2 ``footprint_coll_point`` against its plain version at the main
-   path's shape and with un-normalized headings: ``valid`` and ``frac``
-   exact, ``coll_pt`` within 2e-6 x the largest coordinate (float32
-   summation of up to 624 terms against the kernel's float64 sum);
+   path's shape, with un-normalized headings and on the edge cases of
+   ``kernel_cases.coll_point_cases`` (grids 7x5 and 64x40, cars wholly
+   off the map or wholly on drivable ground, P = 1): ``valid`` and
+   ``frac`` exact, ``coll_pt`` within 2e-6 x the largest coordinate
+   (float32 summation of up to 624 terms against the kernel's float64
+   sum);
 5. a small run (32 px crops, 3 iterations) on the card against the same
    run on the CPU through the plain versions: loss history rtol 1e-3,
    final latents atol 1e-4;
@@ -28,7 +31,9 @@ at 4 px/m. Phases:
    ``window_extract`` and K4b ``window_take``: each against its plain
    version at the probe scripts' shapes and on edge cases (windows at the
    raster's last rows and columns, starts off the 16-byte grid or past the
-   raster, indices outside the window, both dtypes): bit-exact; each timed
+   raster, indices outside the window, both dtypes; for K4b also the rows
+   of ``kernel_cases.take_cases``: N = 1 with Q in {1, 3, 5, 1001},
+   and N = 70,000): bit-exact; each timed
    beside its plain version, one library call and its bound. Then the
    gather-probe path (``probes.onehot_crop.run``, ``probes.gather.run``)
    with the window counters set to 0: every probe step bit-exact, and the
@@ -140,7 +145,7 @@ def profile_iterations(torch, model, scene, store, emb, iters=3):
                 f"per launch on the main path ({e.count} launches)")
 
 
-def window_cases(torch, np, oc, dev):
+def window_cases(torch, np, oc, kc, dev):
     """(kernel, args) pairs that hold K3, K4a and K4b against their plain
     versions: the probe scripts' shapes and the edge cases. The first case
     of each kernel is the shape it is timed at."""
@@ -196,6 +201,10 @@ def window_cases(torch, np, oc, dev):
     wild[:, :4] = i32([-1, 0, 512 * 512 - 1, 512 * 512])
     for w in (wins[:5], wins[:5].to(torch.uint8)):
         cases.append(("window_take", (w.contiguous(), wild)))
+    for w, i in kc.take_cases(0).values():
+        w, i = torch.from_numpy(w).to(dev), torch.from_numpy(i).to(dev)
+        cases += [("window_take", (w, i)), ("window_take", (w.to(torch.uint8),
+                                                           i))]
     return cases
 
 
@@ -269,6 +278,7 @@ def window_phase(torch, rates, card, k1_gelem_s):
     """
     import numpy as np
 
+    from strive_tpu_torch import kernel_cases as kc
     from strive_tpu_torch.probes import gather
     from strive_tpu_torch.probes import onehot_crop as oc
     from strive_tpu_torch.probes import window_kernels as wk
@@ -278,7 +288,7 @@ def window_phase(torch, rates, card, k1_gelem_s):
     before = dict(wk.LAUNCHES)
     launched = dict.fromkeys(wk.LAUNCHES, 0)
     entries, timed = {}, set()
-    for name, args in window_cases(torch, np, oc, dev):
+    for name, args in window_cases(torch, np, oc, kc, dev):
         got = getattr(wk, name)(*args)
         want = getattr(wk, f"{name}_plain")(*args)
         torch.cuda.synchronize()
@@ -627,8 +637,8 @@ def main():
 
     import numpy as np
 
+    from strive_tpu_torch import kernel_cases as kc
     from strive_tpu_torch.data.synthetic import synthetic_scene_list
-    from strive_tpu_torch.geometry import interp_traj
     from strive_tpu_torch.maps import crop_kernel, queries
     from strive_tpu_torch.maps.store import DEFAULT_BOUNDS, synthetic_map_store
     from strive_tpu_torch.model import traffic_model as tm
@@ -713,17 +723,11 @@ def main():
         f"(plain {k1_plain_ms:.4f} ms, bound {k1_bound:.4f} ms by {k1_by})")
 
     # --- 4. K2 against its plain version -----------------------------------
-    fut = interp_traj(scene.future_gt[..., :4] * sstd + smean, 3)  # (B,NA,36,4)
-    T3 = fut.shape[2]
-    cars = fut.reshape(-1, 4).contiguous()
-    lw_un = scene.lw * torch.as_tensor(norm.att_std, device=dev) \
-        + torch.as_tensor(norm.att_mean, device=dev)
-    lw = lw_un[:, :, None, :].expand(B, NA, T3, 2).reshape(-1, 2).contiguous()
-    cmap = scene.map_idx[:, None, None].expand(B, NA, T3).reshape(-1) \
-        .contiguous()
-    lin_l = queries.linspace(-1.0, 1.0, 39, dev)
-    lin_w = queries.linspace(-1.0, 1.0, 16, dev)
-    k2_args = (store.packed, store.dx, cars, lw, cmap, lin_l, lin_w, 0)
+    k2_args = kc.main_path_coll_point_args(  # 1152 cars: B x NA x 36 poses
+        store, scene, smean, sstd,
+        torch.as_tensor(norm.att_mean, device=dev),
+        torch.as_tensor(norm.att_std, device=dev))
+    cars, lw, cmap, lin_l, lin_w = k2_args[2:7]
     wild = torch.from_numpy(np.concatenate(
         [rng.uniform(-50, 560, (48, 2)), rng.uniform(100, 400, (48, 2))],
         1).astype(np.float32)).to(dev)
@@ -731,21 +735,11 @@ def main():
                                      rng.uniform(1.5, 3, 48)], 1)
                            .astype(np.float32)).to(dev)
     wmap = torch.from_numpy(rng.integers(0, 2, 48)).to(dev)
-    k2_err = 0.0
-    for args in (k2_args,
-                 (store.packed, store.dx, wild, wlw, wmap, lin_l, lin_w, 0)):
-        got = crop_kernel.footprint_coll_point(*args)
-        ref = crop_kernel.footprint_coll_point_plain(*args)
-        torch.cuda.synchronize()
-        if not (torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])):
-            raise AssertionError("footprint valid/frac differ from plain")
-        c, h, l_ = args[2], args[2][:, 2:], args[3]
-        scale = float(c[:, :2].abs().amax() + l_.amax() * h.abs().amax())
-        err = float((got[0] - ref[0]).abs().amax())
-        if err > 2e-6 * scale:
-            raise AssertionError(f"coll_pt differs by {err} (tol "
-                                 f"{2e-6 * scale})")
-        k2_err = max(k2_err, err)
+    k2_cases = [k2_args,
+                (store.packed, store.dx, wild, wlw, wmap, lin_l, lin_w, 0)]
+    k2_cases += [kc.coll_point_args(store, c, dev)
+                 for c in kc.coll_point_cases(STORE_PX).values()]
+    k2_err = max(kc.coll_point_error(args) for args in k2_cases)
     k2_ms = cuda_ms(lambda: crop_kernel.footprint_coll_point(*k2_args),
                     200)
     k2_plain_ms = cuda_ms(
@@ -765,9 +759,9 @@ def main():
         replaces="strive_tpu/maps/crop_kernel.py:298", max_abs_err=k2_err,
         ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_bound, bound_by=k2_by,
         library_ms=None)
-    log(f"K2 footprint_coll_point: valid/frac exact, coll_pt max err "
-        f"{k2_err:.3g}; {k2_ms:.4f} ms (plain {k2_plain_ms:.4f} ms, bound "
-        f"{k2_bound:.4f} ms by {k2_by})")
+    log(f"K2 footprint_coll_point: valid/frac exact on {len(k2_cases)} "
+        f"cases, coll_pt max err {k2_err:.3g}; {k2_ms:.4f} ms (plain "
+        f"{k2_plain_ms:.4f} ms, bound {k2_bound:.4f} ms by {k2_by})")
 
     # --- 5. small run: card (kernels) against CPU (plain versions) ---------
     small_kw = dict(map_bounds=(-4.0, -8.0, 12.0, 8.0), conv_kernels=(5, 3, 3),

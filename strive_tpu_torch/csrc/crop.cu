@@ -31,9 +31,21 @@
 // 512 contiguous bytes. The gathered byte goes through the read-only cache
 // (__ldg); neighbouring pixels of a crop hit the same raster lines.
 // K2 at the main path's shape (1152 cars x 39x16 samples) reads < 0.72 MB
-// and writes 18 KB: well under 1 us of bytes, so the launch bounds it. One
-// warp per car; the 624 samples are never written to memory: the warp
-// reduces them to (coll_pt, valid, frac) in registers.
+// and writes 18 KB: well under 1 us of bytes or operations. A first design
+// (one warp per car, each lane walking ~20 samples in turn, 144 blocks)
+// took 12 us. This one spreads a car over a block of kFootThreads threads
+// (1152 blocks, one wave), and each thread first computes the pixels of its
+// kFootSamples samples, then issues all their byte loads, then accumulates:
+// one round trip per pass. A thread steps its samples' (l, w) by
+// kFootThreads, so there is one integer divide per thread, not per sample.
+// The 624 samples are never written to memory: the block reduces them to
+// (coll_pt, valid, frac) with warp shuffles, then across its warps in
+// shared memory, in float64 with an exact integer count. What bounds it now
+// is the arithmetic each sample must repeat exactly (two IEEE divisions,
+// the float64 sums) issued on the SMs that hold the blocks: the time follows
+// the threads launched and the waves they take, not the round trips
+// (PERF.md). 128 threads x 5 samples is the fastest launch shape measured
+// (tools/kernel_variants.py times the others).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,17 +66,17 @@ __device__ __forceinline__ float rot_y(float l, float w, float hc, float hs,
   return __fadd_rn(__fadd_rn(__fmul_rn(l, hs), __fmul_rn(w, hc)), y);
 }
 
-// Raster byte at world point (gx, gy) of map m; off-map -> pixel (0, 0).
-// A NaN coordinate fails every comparison and is off-map too.
-__device__ __forceinline__ uint8_t lookup(const uint8_t* __restrict__ packed,
-                                          long long m, int H, int W, float gx,
-                                          float gy, float d0, float d1) {
+// Offset of the raster byte at world point (gx, gy) in map m; off-map ->
+// pixel (0, 0). A NaN coordinate fails every comparison and is off-map too.
+__device__ __forceinline__ long long pixel_offset(long long m, int H, int W,
+                                                  float gx, float gy, float d0,
+                                                  float d1) {
   const float fx = rintf(__fdiv_rn(gx, d0));
   const float fy = rintf(__fdiv_rn(gy, d1));
   const bool inside = fx >= 0.f && fx < (float)W && fy >= 0.f && fy < (float)H;
   long long idx = m * (long long)H * W;
   if (inside) idx += (long long)fy * W + (long long)fx;
-  return __ldg(packed + idx);
+  return idx;
 }
 
 __device__ __forceinline__ long long clamp_map(long long m, int M) {
@@ -93,8 +105,9 @@ map_crop_kernel(const uint8_t* __restrict__ packed, int M, int H, int W,
   if (isnan(gx)) gx = 0.f;  // NaN pose -> world origin (queries.py guard)
   if (isnan(gy)) gy = 0.f;
   const long long m = clamp_map(mapix[n], M);
-  const unsigned b = lookup(packed, m, H, W, gx, gy, __ldg(dx + 2 * m),
-                            __ldg(dx + 2 * m + 1));
+  const unsigned b = __ldg(packed + pixel_offset(m, H, W, gx, gy,
+                                                 __ldg(dx + 2 * m),
+                                                 __ldg(dx + 2 * m + 1)));
 
   if (kNHWC) {
     float* o = out + (long long)i * C;
@@ -112,52 +125,97 @@ map_crop_kernel(const uint8_t* __restrict__ packed, int M, int H, int W,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kFootThreads = 128;  // threads per car
+constexpr int kFootSamples = 5;    // loads in flight a thread
+static_assert(kFootThreads % 32 == 0 && kFootThreads <= 1024,
+              "K2 takes whole warps");
+static_assert(kFootSamples >= 1, "K2 takes a sample per thread at least");
+
+// One block per car. Thread t takes samples t, t + kFootThreads, ... of the
+// L x Wg grid (s = l * Wg + w), kFootSamples of them per pass.
+__global__ void __launch_bounds__(kFootThreads)
 footprint_coll_point_kernel(const uint8_t* __restrict__ packed, int M, int H,
                             int W, const float* __restrict__ dx,
                             const float* __restrict__ cars,
                             const float* __restrict__ lw,
                             const long long* __restrict__ mapix,
                             const float* __restrict__ lin_l,
-                            const float* __restrict__ lin_w, int P, int L,
-                            int Wg, int bit, float* __restrict__ coll_pt,
+                            const float* __restrict__ lin_w, int L, int Wg,
+                            int bit, float* __restrict__ coll_pt,
                             bool* __restrict__ valid,
                             float* __restrict__ frac) {
-  const int car = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (car >= P) return;  // uniform across the warp
-
-  const float x = cars[4 * car], y = cars[4 * car + 1];
-  const float hc = cars[4 * car + 2], hs = cars[4 * car + 3];
-  const float half_l = __fdiv_rn(lw[2 * car], 2.f);
-  const float half_w = __fdiv_rn(lw[2 * car + 1], 2.f);
-  const long long m = clamp_map(mapix[car], M);
+  const int car = blockIdx.x;
+  const int t = threadIdx.x;
+  // the car's constants: every thread reads the same words (a broadcast)
+  const float x = __ldg(cars + 4 * car), y = __ldg(cars + 4 * car + 1);
+  const float hc = __ldg(cars + 4 * car + 2), hs = __ldg(cars + 4 * car + 3);
+  const float half_l = __fdiv_rn(__ldg(lw + 2 * car), 2.f);
+  const float half_w = __fdiv_rn(__ldg(lw + 2 * car + 1), 2.f);
+  const long long m = clamp_map(__ldg(mapix + car), M);
   const float d0 = __ldg(dx + 2 * m), d1 = __ldg(dx + 2 * m + 1);
 
+  const int S = L * Wg;
+  int l = t / Wg, w = t - (t / Wg) * Wg;  // this thread's first sample
+  const int dl = kFootThreads / Wg, dw = kFootThreads - dl * Wg;
   // Sums in double: the plain version's float32 sum is within its own
   // rounding of this; adding gx * nd (not a branch) keeps its NaN/inf
   // semantics (NaN * 0 = NaN).
   double sx = 0.0, sy = 0.0;
   int cnt = 0;
-  const int S = L * Wg;
-  for (int s = lane; s < S; s += 32) {
-    const int l = s / Wg, w = s - (s / Wg) * Wg;
-    const float lo = __fmul_rn(__ldg(lin_l + l), half_l);
-    const float wo = __fmul_rn(__ldg(lin_w + w), half_w);
-    const float gx = rot_x(lo, wo, hc, hs, x);
-    const float gy = rot_y(lo, wo, hc, hs, y);
-    const unsigned b = lookup(packed, m, H, W, gx, gy, d0, d1);
-    const int nd = ((b >> bit) & 1u) == 0u;
-    cnt += nd;
-    sx += (double)gx * nd;
-    sy += (double)gy * nd;
+  for (int s0 = t; s0 < S; s0 += kFootThreads * kFootSamples) {
+    float gx[kFootSamples], gy[kFootSamples];
+    long long pix[kFootSamples];
+    bool in[kFootSamples];
+#pragma unroll
+    for (int k = 0; k < kFootSamples; ++k) {  // all pixel offsets first ...
+      in[k] = k * kFootThreads < S - s0;
+      const float lo = __fmul_rn(__ldg(lin_l + min(l, L - 1)), half_l);
+      const float wo = __fmul_rn(__ldg(lin_w + w), half_w);
+      gx[k] = rot_x(lo, wo, hc, hs, x);
+      gy[k] = rot_y(lo, wo, hc, hs, y);
+      pix[k] = pixel_offset(m, H, W, gx[k], gy[k], d0, d1);
+      w += dw;
+      l += dl;
+      if (w >= Wg) {
+        w -= Wg;
+        ++l;
+      }
+    }
+    unsigned b[kFootSamples];
+#pragma unroll
+    for (int k = 0; k < kFootSamples; ++k)  // ... then every load in flight
+      b[k] = in[k] ? __ldg(packed + pix[k]) : 0u;
+#pragma unroll
+    for (int k = 0; k < kFootSamples; ++k) {
+      if (in[k]) {
+        const int nd = ((b[k] >> bit) & 1u) == 0u;
+        cnt += nd;
+        sx += (double)gx[k] * nd;
+        sy += (double)gy[k] * nd;
+      }
+    }
   }
+
+  constexpr int kWarps = kFootThreads / 32;
   for (int off = 16; off > 0; off >>= 1) {
     cnt += __shfl_down_sync(0xffffffffu, cnt, off);
     sx += __shfl_down_sync(0xffffffffu, sx, off);
     sy += __shfl_down_sync(0xffffffffu, sy, off);
   }
-  if (lane == 0) {
+  __shared__ double wsx[kWarps], wsy[kWarps];
+  __shared__ int wcnt[kWarps];
+  if ((t & 31) == 0) {
+    wsx[t >> 5] = sx;
+    wsy[t >> 5] = sy;
+    wcnt[t >> 5] = cnt;
+  }
+  __syncthreads();
+  if (t == 0) {
+    for (int i = 1; i < kWarps; ++i) {
+      sx += wsx[i];
+      sy += wsy[i];
+      cnt += wcnt[i];
+    }
     const float n = (float)cnt;
     const float denom = fmaxf(n, 1.f);
     coll_pt[2 * car] = __fdiv_rn((float)sx, denom);
@@ -195,7 +253,8 @@ int strive_map_crop(const uint8_t* packed, int M, int H, int W,
   return (int)cudaGetLastError();
 }
 
-// coll_pt: (P, 2) float32, valid: (P,) bool, frac: (P,) float32.
+// coll_pt: (P, 2) float32, valid: (P,) bool, frac: (P,) float32;
+// L, Wg >= 1 and L * Wg < 2^30 (wrapper).
 int strive_footprint_coll_point(const uint8_t* packed, int M, int H, int W,
                                 const float* dx, const float* cars,
                                 const float* lw, const long long* mapix,
@@ -203,12 +262,10 @@ int strive_footprint_coll_point(const uint8_t* packed, int M, int H, int W,
                                 int L, int Wg, int bit, float* coll_pt,
                                 bool* valid, float* frac, void* stream) {
   if (P == 0) return (int)cudaSuccess;
-  const long long threads = (long long)P * 32;
-  const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
-  footprint_coll_point_kernel<<<blocks, kThreads, 0,
+  footprint_coll_point_kernel<<<P, kFootThreads, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
-      packed, M, H, W, dx, cars, lw, mapix, lin_l, lin_w, P, L, Wg, bit,
-      coll_pt, valid, frac);
+      packed, M, H, W, dx, cars, lw, mapix, lin_l, lin_w, L, Wg, bit, coll_pt,
+      valid, frac);
   return (int)cudaGetLastError();
 }
 

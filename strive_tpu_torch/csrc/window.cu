@@ -37,14 +37,37 @@
 // window is). A TMA tensor-map copy is later work. Bound: WIN 640 int32 x 32 agents writes 52 MB and reads the
 // windows' distinct raster bytes (<= 52 MB): ~31 us.
 //
-// K4b design: one thread per output; the index load and the output store are
-// coalesced, the gather goes through the read-only cache to L2 (32 int32
-// windows of 512^2 = 33.5 MB fit the 50 MB L2). Bound at probe 1's shape:
-// 8.4 MB of indices, 8.4 MB of output and the distinct window elements the
-// indices touch: ~7 us.
+// K4b design: out[n, q] = wins[n, clip(idx[n, q])] over the flat N*Q array.
+// At probe 1's shape (32 int32 windows of 512^2, 65,536 uniform indices
+// each) the bound is ~7 us: 8.4 MB of indices, 8.4 MB of output and the
+// distinct window elements the indices touch. What holds it back is the
+// rate at which the memory system serves random requests, not one thread's
+// latency: each gather is its own 32-byte sector, and the streaming part
+// alone (a copy of the same index and output bytes) takes ~4.4 us
+// (PERF.md). So the kernel serves what gathers it can from L1. Where all the
+// windows fit 90% of L2, the outputs go in one contiguous chunk per block of
+// 1024 threads, one block on each SM, a chunk inside one row where there are
+// fewer rows than SMs: each SM gathers from one window (a quarter of its
+// outputs at probe 1's shape) and its L1 keeps what it can of it (the kernel
+// uses no shared memory, so all of it is L1). Each thread takes kTakeVec<T>
+// consecutive outputs: one 16-byte index load per 4 (where the indices are
+// 16-byte aligned), all the gathers in flight, one vector store; indices and
+// outputs, read and written once, go through the evict-first hints (__ldcs,
+// __stcs). Windows that overflow 90% of L2 take the flat layout (one output
+// per thread, 256-thread blocks in order of the rows, as in the first
+// design), however many rows there are: the blocks resident at once gather
+// from a few windows, whose sectors stay in L2 between the gathers that
+// share them, and there the layout by SM measured slower. A vector that
+// crosses a row, a chunk's ragged ends and unaligned pointers take the
+// scalar path; each element steps its own row n (and so its window and clip
+// bound), so N is not limited by a grid dimension. The constants below are
+// the fastest measured, or within its spread (V = 16 for uint8, V = 8 is
+// as fast); tools/kernel_variants.py times the others.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -135,17 +158,111 @@ window_extract_kernel(const T* __restrict__ raster, int R, int Wp,
   *reinterpret_cast<uint4*>(out + ((long long)n * WIN + r) * WIN + c) = pack.u;
 }
 
-// out[n, q] = wins[n, clamp(idx[n, q], 0, S - 1)]
+// outputs per K4b thread
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kTakeVec = sizeof(T) == 1 ? 16 : 4;
+
+// the widest store of kBytes <= 16 bytes
+template <int kBytes> struct Chunk;
+template <> struct Chunk<1> { using type = uint8_t; };
+template <> struct Chunk<2> { using type = unsigned short; };
+template <> struct Chunk<4> { using type = unsigned; };
+template <> struct Chunk<8> { using type = uint2; };
+template <> struct Chunk<16> { using type = uint4; };
+
+// Indices and outputs are read or written once: evict first, so that they
+// do not push the windows out of the caches.
+template <typename C>
+__device__ __forceinline__ void store_once(C* p, C v) {
+  __stcs(p, v);
+}
+
+template <typename C>
+__device__ __forceinline__ C load_once(const C* p) {
+  return __ldcs(p);
+}
+
+constexpr int kTakeThreads = 1024;
+constexpr int kTakeBlocksPerSM = 1;
+// windows that fill more of L2 than this share take the flat layout
+constexpr int kTakeL2Percent = 90;
+constexpr int kFlatThreads = 256;  // the flat layout: one output a thread
+
+// K4b: out[e] = wins[n, clamp(idx[e], 0, S - 1)] for e = n * Q + q < total,
+// V consecutive outputs a thread. The blocks come in groups of `bpr`, a
+// group per `rows` rows; block p of a group takes the group's outputs
+// [p * chunk, (p + 1) * chunk). `aligned`: idx and out start on 16-byte
+// boundaries.
+template <typename T, int V, int kBlock>
+__global__ void __launch_bounds__(kBlock)
 window_take_kernel(const T* __restrict__ wins, int S,
-                   const int* __restrict__ idx, int Q, T* __restrict__ out) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= Q) return;
-  const long long n = blockIdx.y;
-  const long long o = n * Q + q;
-  const int j = clampi(__ldg(idx + o), 0, S - 1);
-  out[o] = __ldg(wins + n * S + j);
+                   const int* __restrict__ idx, int Q, int total, int rows,
+                   int bpr, int chunk, bool aligned, T* __restrict__ out) {
+  static_assert(V == 1 || V == 2 || V % 4 == 0, "V indices per 16-byte load");
+  constexpr int kBytes = V * sizeof(T);
+  static_assert(kBytes <= 16 || kBytes % 16 == 0,
+                "a thread's outputs are one store or whole 16-byte stores");
+  using C = typename Chunk<(kBytes < 16 ? kBytes : 16)>::type;
+  constexpr int kChunks = kBytes < 16 ? 1 : kBytes / 16;
+  const int n0 = blockIdx.x / bpr * rows;
+  const bool one_row = rows == 1;
+  const long long start = (long long)n0 * Q;
+  const long long end = min((long long)total, start + (long long)rows * Q);
+  const int e_lo =
+      (int)min(end, start + (long long)(blockIdx.x % bpr) * chunk);
+  const int e_hi = (int)min(end, (long long)e_lo + chunk);
+  const unsigned g_hi = (unsigned)(e_hi / V + (e_hi % V != 0));
+  for (unsigned g = e_lo / V + threadIdx.x; g < g_hi; g += kBlock) {
+    const int e0 = (int)(g * V);
+    const int k_lo = e_lo - e0, k_hi = e_hi - e0;  // its elements in range
+    const bool whole = aligned && k_lo <= 0 && V <= k_hi;
+    int j[V];
+    if constexpr (V % 4 == 0) {
+      if (whole) {
+#pragma unroll
+        for (int c = 0; c < V / 4; ++c) {
+          const int4 q =
+              load_once(reinterpret_cast<const int4*>(idx + e0) + c);
+          j[4 * c] = q.x;
+          j[4 * c + 1] = q.y;
+          j[4 * c + 2] = q.z;
+          j[4 * c + 3] = q.w;
+        }
+      }
+    }
+    if (V % 4 != 0 || !whole) {
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        j[k] = k >= k_lo && k < k_hi ? load_once(idx + e0 + k) : 0;
+    }
+    // the row of each element: n0, or stepped from the first element's
+    // (rows are >= 1 long)
+    int n = one_row ? n0 : e0 / Q;
+    int row_end = one_row ? V : (n + 1) * Q - e0;  // first k of the next row
+    union {
+      C c[kChunks];
+      T e[V];
+    } v;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      if (k == row_end) {
+        ++n;
+        row_end += Q;
+      }
+      v.e[k] = k >= k_lo && k < k_hi
+                   ? __ldg(wins + (long long)n * S + clampi(j[k], 0, S - 1))
+                   : T(0);
+    }
+    if (whole) {
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+        store_once(reinterpret_cast<C*>(out + e0) + c, v.c[c]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        if (k >= k_lo && k < k_hi) store_once(out + e0 + k, v.e[k]);
+    }
+  }
 }
 
 template <typename T>
@@ -161,12 +278,57 @@ cudaError_t launch_extract(const void* raster, int R, int Wp, const int* row0,
   return cudaGetLastError();
 }
 
+// K4b's tasks. Where all the windows fit kTakeL2Percent of L2, the outputs
+// go in as many contiguous chunks as the card holds blocks of kTakeThreads
+// (kTakeBlocksPerSM on each SM), a chunk inside one row where there are
+// fewer rows than blocks (whole rows otherwise): each SM then gathers from
+// one window, or a few, and its L1 caches them. Otherwise (the flat layout)
+// every block of kFlatThreads takes one output a thread, in order of the
+// rows, and the blocks the card holds at once gather from a few windows
+// whose sectors stay in L2 while they are read again. The card's SM count
+// and L2 size are those of the current device, read at every launch.
 template <typename T>
 cudaError_t launch_take(const void* wins, int N, int S, const int* idx, int Q,
                         void* out, cudaStream_t s) {
-  const dim3 grid((unsigned)((Q + kThreads - 1) / kThreads), N);
-  window_take_kernel<T><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(wins), S, idx, Q, static_cast<T*>(out));
+  constexpr int V = kTakeVec<T>;
+  int dev = 0, sms = 0, l2 = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev);
+  if (err != cudaSuccess) return err;
+  const long long total = (long long)N * Q;  // < 2^31 (wrapper)
+  const bool aligned = reinterpret_cast<uintptr_t>(idx) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if ((long long)N * S * sizeof(T) * 100 >
+      (long long)l2 * kTakeL2Percent) {  // flat
+    const long long bpr = (Q + kFlatThreads - 1) / kFlatThreads;
+    window_take_kernel<T, 1, kFlatThreads>
+        <<<(unsigned)(N * bpr), kFlatThreads, 0, s>>>(
+            static_cast<const T*>(wins), S, idx, Q, (int)total, 1, (int)bpr,
+            kFlatThreads, aligned, static_cast<T*>(out));
+    return cudaGetLastError();
+  }
+  // no shared memory: all of it as L1 (a setting of the current device)
+  err = cudaFuncSetAttribute(window_take_kernel<T, V, kTakeThreads>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout, 0);
+  if (err != cudaSuccess) return err;
+  const long long blocks = std::min<long long>(
+      (long long)sms * kTakeBlocksPerSM, (total + 32 * V - 1) / (32 * V));
+  long long rows = 1, bpr = 1, chunk;
+  if (N >= blocks) {  // whole rows a task
+    rows = (N + blocks - 1) / blocks;
+    chunk = rows * Q;
+  } else {  // a row split over bpr tasks
+    bpr = blocks / N;
+    chunk = ((Q + bpr - 1) / bpr + V - 1) / V * V;
+    bpr = (Q + chunk - 1) / chunk;
+  }
+  window_take_kernel<T, V, kTakeThreads>
+      <<<(unsigned)((N + rows - 1) / rows * bpr), kTakeThreads, 0, s>>>(
+          static_cast<const T*>(wins), S, idx, Q, (int)total, (int)rows,
+          (int)bpr, (int)chunk, aligned, static_cast<T*>(out));
   return cudaGetLastError();
 }
 

@@ -114,8 +114,9 @@ def footprint_coll_point(packed, dx, cars, lw, mapix, lin_l, lin_w, bit=0):
         raise ValueError("lw and mapix must have one row per car")
     if not 0 <= int(bit) < 8:
         raise ValueError("bit must be in [0, 8)")
-    if P * 32 >= 2 ** 31:
-        raise ValueError("footprint_coll_point takes fewer than 2^26 cars")
+    if P >= 2 ** 31 or not 0 < L * Wg < 2 ** 30:
+        raise ValueError("footprint_coll_point takes fewer than 2^31 cars "
+                         "and a grid of 1 to 2^30 samples")
     coll_pt = torch.empty((P, 2), dtype=torch.float32, device=device)
     valid = torch.empty((P,), dtype=torch.bool, device=device)
     frac = torch.empty((P,), dtype=torch.float32, device=device)

@@ -184,8 +184,8 @@ def window_take(wins, idx):
     (N, S), Q = wins.shape, idx.shape[1]
     if idx.shape[0] != N:
         raise ValueError("idx must have one row per window")
-    if S == 0 or N > 65535:
-        raise ValueError("window_take takes 1 to 65535 non-empty windows")
+    if S == 0:
+        raise ValueError("window_take takes non-empty windows")
     _fits_int32(N * S, N * Q)
     out = torch.empty((N, Q), dtype=wins.dtype, device=device)
     if N * Q == 0:

@@ -1,8 +1,8 @@
 """Import guard of the port: strive_tpu_torch and chip_smoke.py stand alone.
 
-Every module of ``strive_tpu_torch/`` and ``chip_smoke.py`` is scanned
-(AST, so imports inside functions count too) for imports of jax, flax,
-optax or strive_tpu. The package must import on a machine without nvcc or
+Every module of ``strive_tpu_torch/``, ``tools/`` and ``chip_smoke.py`` is
+scanned (AST, so imports inside functions count too) for imports of jax,
+flax, optax or strive_tpu. The package must import on a machine without nvcc or
 triton, and a call on CPU tensors must take the plain versions without
 launching (or building) a kernel.
 """
@@ -25,7 +25,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "strive_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "strive_tpu"}
 SOURCES = sorted(p.relative_to(ROOT).as_posix()
-                 for p in PACKAGE.rglob("*.py")) + ["chip_smoke.py"]
+                 for p in [*PACKAGE.rglob("*.py"), *ROOT.glob("tools/*.py")]
+                 ) + ["chip_smoke.py"]
 
 
 def _imported_roots(path):

@@ -1,0 +1,45 @@
+"""The launch-shape sweep of ``tools/kernel_variants.py``, on the CPU: each
+variant's copy of ``crop.cu`` or ``window.cu`` differs from the port's
+source in the constants it names and nowhere else, so a change to the
+kernels that the sweep's edits no longer match fails here, not on the card.
+"""
+
+import pytest
+
+from strive_tpu_torch.utils import build
+from tools import kernel_variants as kv
+
+SOURCES = kv.variant_sources()
+CHANGED = ("constexpr int kFoot", "constexpr int kTake", "__stcs(p, v);",
+           "return __ldcs(p);")
+
+
+def test_port_variants_are_the_sources():
+    assert SOURCES["k2"]["port"] == ("crop",
+                                     (build.CSRC / "crop.cu").read_text())
+    assert SOURCES["take"]["port"] == ("window",
+                                       (build.CSRC / "window.cu").read_text())
+    assert len(SOURCES["k2"]) == len(kv.K2_SHAPES) + 1
+    assert len(SOURCES["take"]) == len(kv.TAKE_SHAPES) + 1
+
+
+@pytest.mark.parametrize("kernel,label", [
+    (k, label) for k, group in SOURCES.items() for label in group
+    if label != "port"])
+def test_variant_changes_its_constants_alone(kernel, label):
+    port = SOURCES[kernel]["port"][1].splitlines()
+    text = SOURCES[kernel][label][1].splitlines()
+    assert len(text) == len(port)
+    diff = [(a, b) for a, b in zip(port, text) if a != b]
+    for a, _ in diff:
+        assert a.strip().startswith(CHANGED), a
+    if kernel == "take":  # kTakeVec is replaced in every variant
+        assert diff
+
+
+def test_patched_needs_each_text_once():
+    assert kv.patched("a b c", {"b": "x"}) == "a x c"
+    with pytest.raises(ValueError):
+        kv.patched("a b c", {"d": "x"})
+    with pytest.raises(ValueError):
+        kv.patched("a b b", {"b": "x"})

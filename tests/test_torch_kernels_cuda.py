@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from strive_tpu_torch import kernel_cases as kc
 from strive_tpu_torch.maps import crop_kernel, queries
 from strive_tpu_torch.maps.store import DEFAULT_BOUNDS, synthetic_map_store
 
@@ -119,6 +120,28 @@ def test_footprint_matches_plain(dev, P, lw_hi, unit_h, size_px):
     assert torch.equal(got[2], ref[2])  # frac
     scale = float((cars[:, :2].abs().amax() + lw.amax() * cars[:, 2:].abs().amax()))
     torch.testing.assert_close(got[0], ref[0], rtol=0, atol=2e-6 * scale)
+
+
+@pytest.mark.parametrize("case", ["grid_7x5", "grid_64x40", "off_map",
+                                  "on_road", "one_car"])
+def test_footprint_edge_cases_match_plain(dev, store, case):
+    """Grids that are no multiple of the block's threads, cars wholly off
+    the map or wholly on drivable ground, and P = 1."""
+    c = kc.coll_point_cases(2048)[case]
+    args = kc.coll_point_args(store, c, dev)
+    kc.coll_point_error(args)
+    valid, frac = crop_kernel.footprint_coll_point(*args)[1:]
+    if case in ("off_map", "on_road"):
+        assert not valid.any()
+    if case == "on_road":
+        assert not frac.any()
+
+
+def test_footprint_main_path_matches_plain(dev):
+    """The 1152 interpolated poses the main path gives K2."""
+    _, args = kc.main_path_k2(dev)
+    assert args[2].shape == (1152, 4)
+    kc.coll_point_error(args)
 
 
 def test_cuda_dispatch_launches_the_kernels(dev, store):

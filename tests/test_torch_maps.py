@@ -18,6 +18,7 @@ from torch_helpers import assert_gather_parity, n, t
 from strive_tpu.maps import get_map_crop as j_crop
 from strive_tpu.maps import queries as jq
 from strive_tpu.maps import synthetic_map_store as j_store
+from strive_tpu_torch import kernel_cases as kc
 from strive_tpu_torch.maps import crop_kernel, queries as tq
 from strive_tpu_torch.maps import synthetic_map_store as t_store
 
@@ -156,6 +157,85 @@ def test_coll_point_matches(lw_hi, unit_h, size_px):
     np.testing.assert_array_equal(n(got[2])[same], n(want[2])[same])
     np.testing.assert_allclose(n(got[0])[same], n(want[0])[same], rtol=0,
                                atol=2e-6 * scale)
+
+
+@pytest.mark.parametrize("case", ["grid_7x5", "grid_64x40", "off_map",
+                                  "on_road", "one_car"])
+def test_coll_point_edge_cases_match(stores, case):
+    """The footprint kernel's edge cases (grids that are no multiple of any
+    thread count, cars wholly off the map or wholly on drivable ground,
+    P = 1) through the port's plain path against the JAX package."""
+    js, ts = stores
+    cars, lw, mapix, grid = kc.coll_point_cases(512)[case]
+    L, W = grid
+    jx = jq.gen_car_coords(jnp.asarray(cars[:, :2]), jnp.asarray(cars[:, 2:]),
+                           L, W, ls=jnp.asarray(lw[:, 0]),
+                           ws=jnp.asarray(lw[:, 1]))
+    want_pix = jq._pixel_lookup(js.drivable(), js.dx, jx, jnp.asarray(mapix))
+    tx = tq.gen_car_coords(t(cars[:, :2]), t(cars[:, 2:]), L, W,
+                           ls=t(lw[:, 0]), ws=t(lw[:, 1]))
+    got_pix = tq._pixel_lookup(ts.drivable(), ts.dx, tx, t(mapix))
+    d = ts.dx[t(mapix)][:, None, None, :].expand_as(tx)
+    assert_gather_parity(got_pix, want_pix, tx, d)
+    same = ~(n(got_pix) != n(want_pix)).any(axis=(1, 2))
+    want = jq.get_coll_point(js.drivable(), js.dx, jnp.asarray(cars),
+                             jnp.asarray(lw), jnp.asarray(mapix), grid=grid)
+    got = tq.get_coll_point(ts.packed, ts.dx, t(cars), t(lw), t(mapix),
+                            grid=grid)
+    assert got[0].shape == (len(cars), 2)
+    np.testing.assert_array_equal(n(got[1])[same], n(want[1])[same])
+    np.testing.assert_array_equal(n(got[2])[same], n(want[2])[same])
+    np.testing.assert_allclose(n(got[0])[same], n(want[0])[same], rtol=0,
+                               atol=2e-6 * float(np.abs(n(tx)).max()))
+    if case in ("off_map", "on_road"):  # every sample reads one kind
+        assert same.all() and not n(got[1]).any()
+        assert set(n(got[2]).tolist()) <= {0.0, 1.0}
+    if case == "on_road":
+        assert not n(got[2]).any()
+
+
+def test_main_path_coll_point_args_are_the_losses(monkeypatch):
+    """``kernel_cases.main_path_coll_point_args`` (the inputs chip_smoke.py
+    and the card tests hold K2 to) is what the main path's
+    environment-collision loss hands ``get_coll_point``."""
+    from strive_tpu_torch.data.synthetic import synthetic_scene_list
+    from strive_tpu_torch.geometry import interp_traj
+    from strive_tpu_torch.losses import penalties
+    from strive_tpu_torch.normalize import (att_normalizer_for,
+                                            state_normalizer_for)
+    from strive_tpu_torch.scene import pad_scene_arrays
+
+    ts = t_store(num_maps=2, size_px=256, channels=4, device="cpu")
+    scene = pad_scene_arrays(synthetic_scene_list(
+        num_scenes=2, num_maps=2, map_size_px=256, PT=4, FT=4,
+        min_agents=3, max_agents=3), 3, 2, device="cpu")
+    sn, an = (state_normalizer_for(("car", "truck")),
+              att_normalizer_for(("car", "truck")))
+    smean, sstd = t(sn.mean_np[:4]), t(sn.std_np[:4])
+    amean, astd = t(an.mean_np), t(an.std_np)
+    args = kc.main_path_coll_point_args(ts, scene, smean, sstd, amean, astd)
+
+    seen = []
+
+    def spy(*a, **k):
+        seen.append((a, k))
+        return tq.get_coll_point(*a, **k)
+
+    monkeypatch.setattr(penalties, "get_coll_point", spy)
+    fut = interp_traj(scene.future_gt[..., :4] * sstd + smean, 3)
+    lw = scene.lw * astd + amean
+    penalties.env_coll_penalties(fut, lw, torch.ones(lw.shape[:2], dtype=bool),
+                                 scene.map_idx, ts.packed, ts.dx)
+    [(given, kw)] = seen
+    assert not kw and len(given) == 5
+    assert given[0] is args[0] and given[1] is args[1]
+    assert args[2].shape == (2 * 3 * 12, 4)
+    for got, want in zip(given[2:], args[2:5]):
+        assert torch.equal(got, want)
+    L, W = tq.COLL_POINT_GRID
+    assert torch.equal(args[5], tq.linspace(-1.0, 1.0, L, "cpu"))
+    assert torch.equal(args[6], tq.linspace(-1.0, 1.0, W, "cpu"))
+    assert args[7] == 0
 
 
 def test_on_layer_and_line_layer(stores):

@@ -169,14 +169,23 @@ def test_kernel_crop_matches_xla_path(seed, H, Wp, L, window):
 
 # --- K4 -------------------------------------------------------------------
 
-@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
-def test_window_take_matches_jnp_take_clip(dtype):
-    """pallas_gather_probe.py:69-71, indices out of range on both sides."""
+_TAKE_SHAPES = [(3, 9, 11), (1, 1, 1), (1, 1, 3), (1, 1, 5), (1, 7, 143)]
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    pytest.param(d, s, id=d.__name__ + ("" if s == _TAKE_SHAPES[0] else
+                                        f"-N{s[0]}-Q{s[1] * s[2]}"))
+    for s in _TAKE_SHAPES for d in (np.uint8, np.int32)])
+def test_window_take_matches_jnp_take_clip(dtype, shape):
+    """pallas_gather_probe.py:69-71, indices out of range on both sides; one
+    window with Q in {1, 3, 5, 1001} (rows shorter than a vector, or not a
+    whole number of vectors)."""
     rng = np.random.default_rng(7)
-    N, WIN = 3, 20
+    N, WIN = shape[0], 20
     wins = rng.integers(0, 256, (N, WIN, WIN)).astype(dtype)
-    idx = rng.integers(-60, WIN * WIN + 60, (N, 9, 11)).astype(np.int32)
-    idx[:, 0, :4] = [-1, 0, WIN * WIN - 1, WIN * WIN]
+    idx = rng.integers(-60, WIN * WIN + 60, shape).astype(np.int32)
+    ends = [-1, 0, WIN * WIN - 1, WIN * WIN][:shape[2]]
+    idx[:, 0, :len(ends)] = ends
     want = jax.vmap(lambda w, i: jnp.take(w.reshape(-1), i, mode="clip"))(
         jnp.asarray(wins), jnp.asarray(idx))
     got = wk.take(torch.from_numpy(wins.reshape(N, -1)),

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from strive_tpu_torch import kernel_cases as kc
 from strive_tpu_torch.probes import gather
 from strive_tpu_torch.probes import onehot_crop as oc
 from strive_tpu_torch.probes import window_kernels as wk
@@ -128,6 +129,34 @@ def test_take_matches_plain(dev, dtype, case):
         idx = i32(rng.integers(-2 ** 31, 2 ** 31 - 1, (N, 1001)), dev)
         idx[:, :4] = i32([-1, 0, S - 1, S], dev)
     _same("window_take", (wins, idx))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+@pytest.mark.parametrize("case", list(kc.take_cases(0)))
+def test_take_edge_cases_match_plain(dev, dtype, case):
+    """Rows shorter than a vector or off the vector grid (N = 1, Q in
+    {1, 3, 5, 1001}; N = 5, Q = 1001), indices far out of range, and
+    N = 70,000 windows (more than a grid's y dimension holds)."""
+    wins, idx = kc.take_cases(0)[case]
+    _same("window_take", (torch.from_numpy(wins).to(dev).to(dtype),
+                          torch.from_numpy(idx).to(dev)))
+
+
+@pytest.mark.parametrize("Q", [5, 77])
+def test_take_unaligned_inputs_match_plain(dev, Q):
+    """Windows and index rows that start off the 16-byte grid (views one
+    element in), with rows shorter than a vector (Q = 5 of uint8) and
+    longer."""
+    rng = np.random.default_rng(5)
+    buf = torch.from_numpy(rng.integers(0, 256, 4 * 300 + 1)
+                           .astype(np.int32)).to(dev)
+    flat = i32(rng.integers(-5, 305, 4 * Q + 1), dev)
+    idx = flat[1:].view(4, Q)
+    assert idx.data_ptr() % 16
+    for w in (buf, buf.to(torch.uint8)):
+        wins = w[1:].view(4, 300)
+        assert wins.data_ptr() % 16
+        _same("window_take", (wins, idx))
 
 
 @pytest.mark.parametrize("name", ["window_crop_tiles", "window_extract",
