@@ -44,9 +44,11 @@ at 4 px/m. Phases:
    version at the bisect scripts' shapes, at the gather-probe path's shapes
    (2048 windows of 64x192 on the (2048, 1024) raster; 2048 one-hot tiles;
    (8192, 1024) f32) and on edge cases (windows at the last rows and
-   columns, starts off the 16-byte grid or past the array, sums that wrap
-   past 2^31 both ways, indices outside [0, R), odd widths, both source
-   dtypes): bit-exact. Each timed at the scripts' shape beside the launch
+   columns, starts off the 16-byte grid or past the array, indices outside
+   [0, R), odd widths, both source dtypes; for K5c the rows of
+   ``kernel_cases.sums_cases``: every start residue, sums that wrap past
+   2^31 both ways, each load path, outputs in wide and in narrow blocks):
+   bit-exact. Each timed at the scripts' shape beside the launch
    floor (``torch.cuda._sleep(0)``), and at the path's shape beside its
    plain version, one library call and its bound. Then the 19 variants
    (``probes.mosaic_bisect.run``) with the K5 counters set to 0: every
@@ -383,41 +385,12 @@ BISECT_LIBRARY = {
 }
 
 
-def bisect_path_inputs(torch, np, oc, bk, dev):
-    """K5's inputs at the gather-probe path's shape: the 2048 window origins
-    (32 agents x 64 tiles) of probe_onehot_crop.py's 64x192 window on its
-    (2048, 1024) uint8 raster, and each tile's window-local rows; K5a on
-    (8192, 1024) f32 in groups of 8 rows (the bytes of K1's output)."""
-    probe = oc.PROBES["dma"]
-    x = oc._inputs(probe, dev)
-    N, L, W = probe["N"], probe["L"], probe["W"]
-    tiles = [oc.tileize(x[k], N, L, W) for k in ("py", "px", "outside")]
-    row0, col0, ly, _ = oc.tile_windows(*tiles, x["mapix"], probe["H"],
-                                        probe["Wp"], x["flat"].shape[0],
-                                        "dma")
-    WR, WC = oc.WINDOWS["dma"]
-    flat = x["flat"]
-    r, c = row0.reshape(-1).contiguous(), col0.reshape(-1).contiguous()
-    w = bk.window_convert_plain(flat, r, c, WR, WC, torch.float32).to(
-        torch.bfloat16)
-    rng = np.random.default_rng(8)
-    xs = torch.from_numpy(rng.standard_normal((8192, 1024)).astype(
-        np.float32)).to(dev)
-    fs = torch.from_numpy(rng.standard_normal(1024).astype(np.float32)).to(
-        dev)
-    one = torch.ones(1, dtype=torch.int32, device=dev)
-    return {"scale_rows": (xs, fs, 8),
-            "window_convert": (flat, r, c, WR, WC, torch.int32),
-            "window_sums": (flat, r[:, None].contiguous(),
-                            c[:, None].contiguous(), one, WR, WC),
-            "onehot_rows": (w, ly.reshape(-1, ly.shape[-1]).contiguous())}
-
-
-def bisect_edge_cases(torch, np, dev):
+def bisect_edge_cases(torch, np, kc, dev):
     """(kernel, args) pairs at K5's edges: windows at the last rows and
-    columns, starts off the 16-byte grid, negative or past the array, sums
-    that wrap past 2^31 both ways, indices below 0 and at or above R, odd
-    widths, both source dtypes."""
+    columns, starts off the 16-byte grid, negative or past the array,
+    indices below 0 and at or above R, odd widths, both source dtypes; K5c
+    on ``kernel_cases.sums_cases`` (every start residue, sums that wrap
+    past 2^31 both ways, each load path, wide and narrow blocks)."""
     rng = np.random.default_rng(9)
 
     def i32(a):
@@ -444,13 +417,8 @@ def bisect_edge_cases(torch, np, dev):
             for side in (False, True):
                 cases.append(("window_convert",
                               (src, row0, col0, WR, WC, out, side)))
-    big = i32(rng.integers(2 ** 28, 2 ** 31, (256, 640)))
-    big[:128] *= -1
-    for src in (big, u8):
-        row0 = i32(rng.integers(-src.shape[0], 2 * src.shape[0], (37, 3)))
-        col0 = i32(rng.integers(-src.shape[1], 2 * src.shape[1], (37, 3)))
-        cases.append(("window_sums", (src, row0, col0, i32([1, -1, 3]), 64,
-                                      192)))
+    cases += [("window_sums", kc.sums_args(c, dev))
+              for c in kc.sums_cases().values()]
     T, Rw, Cw, P = 5, 64, 192, 1000
     w = tensor(rng.standard_normal((T, Rw, Cw)).astype(np.float32)).to(
         torch.bfloat16)
@@ -528,19 +496,19 @@ def bisect_phase(torch, rates, card):
     """
     import numpy as np
 
+    from strive_tpu_torch import kernel_cases as kc
     from strive_tpu_torch.probes import bisect_kernels as bk
     from strive_tpu_torch.probes import mosaic_bisect as mb
-    from strive_tpu_torch.probes import onehot_crop as oc
     from strive_tpu_torch.utils.timing import calls, cuda_ms
 
     dev = torch.device("cuda")
     variants = {v.__name__: v for _, _, v in mb.VARIANTS}
     script_args = {k: variants[v](dev).args
                    for k, v in BISECT_SCRIPT_SHAPE.items()}
-    path_args = bisect_path_inputs(torch, np, oc, bk, dev)
+    path_args = kc.bisect_path_args(dev)
     cases = ([(k, a) for k, a in script_args.items()]
              + [(k, a) for k, a in path_args.items()]
-             + bisect_edge_cases(torch, np, dev))
+             + bisect_edge_cases(torch, np, kc, dev))
     before = dict(bk.LAUNCHES)
     launched = dict.fromkeys(bk.LAUNCHES, 0)
     entries = {k: dict(name=k, route="cuda",

@@ -37,12 +37,35 @@
 //   16-byte vector. Loads are element-wise, so any start column works. The
 //   output strides are arguments: two windows side by side in one output row
 //   are one launch. 2048 windows u8 -> i32 write 100.7 MB: ~31 us.
-// K5c: one block per output; each warp walks window rows, its lanes
-//   consecutive columns, summing in uint32 (exact modulo 2^32 in any order);
-//   a warp-shuffle tree and one shared-memory pass reduce the block. The
-//   result is the int32 with the same bits. It reads the windows' distinct
-//   raster bytes (<= the 2 MB raster) and writes 8 KB: a few us of bytes, so
-//   the latency of 2048 small reductions bounds it in practice.
+// K5c: an output's windows are cut into aligned VB-byte pieces of their
+//   rows: 16-byte vectors where every row starts on a 16-byte boundary
+//   (C * sizeof(T) % 16 == 0 and src 16-byte aligned), else 4-byte words
+//   where rows start on 4 bytes, else single bytes (uint8 only). A piece
+//   may stick out of its window on either side, never out of its row; the
+//   bytes outside are masked to zero, and a piece wholly outside is not
+//   loaded. A thread keeps one piece column of a window's rows, so its
+//   masks are set once a window; it issues the loads of kSumVecs rows, then
+//   sums them: uint8 four bytes an instruction (__dp4a against
+//   0x01010101), int32 as uint32 adds, and multiplies its part of each
+//   window by the window's sign. Every sum is in uint32, which is exact
+//   modulo 2^32 in any order, so the result is the int32 with the same bits
+//   whatever the split. A warp reduction and one shared-memory pass
+//   reduce the block, one block an output: no atomics, no second launch.
+//   The block follows G against the current device's SM count: while
+//   every output has an SM of its own, a wide block of kSumWideThreads
+//   spreads its rows, and as it is bound by latency, each thread reads
+//   each window's start itself (no barrier before the pieces load);
+//   beyond that, blocks of kSumThreads, small enough that the card holds
+//   many at once, stage their windows' starts in shared memory. Each
+//   choice is the slower one on the other side (the starts_*_for_every_G
+//   and one-shape variants of tools/kernel_variants.py). An output split
+//   over a thread-block cluster, its blocks' partials added through
+//   distributed shared memory, was slower than one wide block at every
+//   shape of the bisect scripts, and is not kept. The bytes (the windows'
+//   distinct raster bytes, <= the 2 MB raster, and 8 KB out) take well
+//   under the launch floor; what the card must do is 2048 x 64 rows x 12
+//   vectors = 25.2 MB of L2 reads at the path's shape, whose windows start
+//   on 16-byte columns, after one L2 round trip for the window starts.
 // K5d: one block per (t, band of 256 points). The block stages w[t] (64x192
 //   bf16 = 24 KB) in shared memory, rows padded to an odd number of 32-bit
 //   words so that 32 different rows fall in 32 different banks; each thread
@@ -60,6 +83,13 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBandRows = 16;
 constexpr int kDefaultSharedBytes = 48 * 1024;
+
+// K5c's launch shapes: threads a block, pieces a thread loads before it sums
+// them; one wide block an output while G <= the SM count
+constexpr int kSumThreads = 64;
+constexpr int kSumVecs = 16;
+constexpr int kSumWideThreads = 512;
+constexpr int kSumWideVecs = 2;
 
 // dtype codes shared with probes/bisect_kernels.py
 constexpr int kU8 = 0, kI32 = 1, kF32 = 2;
@@ -145,38 +175,142 @@ window_convert_kernel(const Tin* __restrict__ src, int R, int C,
   }
 }
 
+// The bytes [lo, hi) of a piece that fall in its little-endian 32-bit word
+// at byte p, as a mask of that word.
+__device__ __forceinline__ unsigned byte_mask(int p, int lo, int hi) {
+  const int a = clampi(lo - p, 0, 4), b = clampi(hi - p, 0, 4);
+  return static_cast<unsigned>((0xffffffffull << (8 * a)) &
+                               ((1ull << (8 * b)) - 1));
+}
+
+// The VB bytes at p as 32-bit words (a single byte zero-extended), or
+// zeros where !ok.
+template <int VB>
+__device__ __forceinline__ void load_piece(const uint8_t* p, bool ok,
+                                           unsigned* w) {
+  if constexpr (VB == 16) {
+    const uint4 u = ok ? __ldg(reinterpret_cast<const uint4*>(p))
+                       : make_uint4(0u, 0u, 0u, 0u);
+    w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
+  } else if constexpr (VB == 4) {
+    w[0] = ok ? __ldg(reinterpret_cast<const unsigned*>(p)) : 0u;
+  } else {
+    w[0] = ok ? static_cast<unsigned>(__ldg(p)) : 0u;
+  }
+}
+
 // out[g] = sum_k sign[k] * sum(window(row0[g, k], col0[g, k])) modulo 2^32,
-// as int32. Launched with kThreads threads.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// as int32, over aligned VB-byte pieces of the window rows (design note at
+// the top); block g of NT threads. A thread keeps one piece column of a row
+// (its masks are set once a window) and walks rows rs apart, NV loads at a
+// time. WIDE (a block an SM, latency-bound): every thread reads each
+// window's start itself, the next one while it sums the current; else the
+// block's windows are staged in shared memory, NT at a time.
+template <typename T, int VB, int NT, int NV, bool WIDE>
+__global__ void __launch_bounds__(NT)
 window_sums_kernel(const T* __restrict__ src, int R, int C,
                    const int* __restrict__ row0,
                    const int* __restrict__ col0,
                    const int* __restrict__ sign, int K, int WR, int WC,
                    int* __restrict__ out) {
-  __shared__ unsigned warp_sums[kThreads / 32];
+  constexpr int W = VB >= 4 ? VB / 4 : 1;  // 32-bit words a piece
+  constexpr int E = sizeof(T);
+  static_assert(VB >= E && VB % E == 0, "a piece holds whole elements");
+  static_assert(NT % 32 == 0 && NT <= 1024, "whole warps, one pass of sums");
+  __shared__ unsigned warp_sums[NT / 32];
+
   const long long g = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned acc = 0;
-  for (int k = 0; k < K; ++k) {
-    const int r0 = slice_start(__ldg(row0 + g * K + k), R, WR);
-    const int c0 = slice_start(__ldg(col0 + g * K + k), C, WC);
-    const T* s = src + (long long)r0 * C + c0;
+  const unsigned rows = WR;
+  const long long row_bytes = (long long)C * E;
+  const int L = WC * E;                      // window bytes a row
+  const int nv = (L - 1 + VB - E) / VB + 1;  // pieces a row, at most
+  const int cw = min(nv, NT);                // pieces side by side
+  const unsigned rs = NT / cw;               // rows a pass
+  const int v_t = threadIdx.x % cw;
+  const unsigned r_t = threadIdx.x / cw;     // >= rs: idle
+  const uint8_t* bytes = reinterpret_cast<const uint8_t*>(src);
+
+  // this thread's part of the window whose first piece is at, its first
+  // byte skew bytes in
+  auto part_of = [&](const uint8_t* at, int skew) {
     unsigned part = 0;
-    for (int r = warp; r < WR; r += kThreads / 32)
-      for (int c = lane; c < WC; c += 32)
-        part += static_cast<unsigned>(__ldg(s + (long long)r * C + c));
-    acc += part * static_cast<unsigned>(__ldg(sign + k));
-  }
+    for (int c0 = 0; c0 < nv; c0 += cw) {
+      const int v = c0 + v_t;
+      const int lo = skew - v * VB, hi = lo + L;  // window bytes
+      unsigned m[W];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
+      for (int j = 0; j < W; ++j) m[j] = byte_mask(4 * j, lo, hi);
+      const bool live = r_t < rs && hi > 0;  // a piece of the window
+      const uint8_t* p = at + (long long)v * VB;
+      for (unsigned r0 = live ? r_t : rows; r0 < rows; r0 += rs * NV) {
+        unsigned w[NV][W];
+#pragma unroll
+        for (int u = 0; u < NV; ++u) {  // every load, then the sums
+          const unsigned r = r0 + u * rs;
+          load_piece<VB>(p + (long long)r * row_bytes, r < rows, w[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < NV; ++u)
+#pragma unroll
+          for (int j = 0; j < W; ++j) {
+            if constexpr (E == 1)
+              part = __dp4a(w[u][j] & m[j], 0x01010101u, part);
+            else
+              part += w[u][j] & m[j];
+          }
+      }
+    }
+    return part;
+  };
+
+  unsigned acc = 0;
+  if constexpr (WIDE) {
+    int r_in = 0, c_in = 0, s_in = 0;  // window 0's start, if any
+    if (K > 0) {
+      r_in = __ldg(row0 + g * K);
+      c_in = __ldg(col0 + g * K);
+      s_in = __ldg(sign);
+    }
+    for (int k = 0; k < K; ++k) {
+      const int r0 = slice_start(r_in, R, WR);
+      const int b0 = slice_start(c_in, C, WC) * E;
+      const unsigned sg = static_cast<unsigned>(s_in);
+      if (k + 1 < K) {
+        r_in = __ldg(row0 + g * K + k + 1);
+        c_in = __ldg(col0 + g * K + k + 1);
+        s_in = __ldg(sign + k + 1);
+      }
+      acc += part_of(bytes + r0 * row_bytes + b0 / VB * VB, b0 % VB) * sg;
+    }
+  } else {
+    __shared__ long long win_at[NT];  // byte of a window's first piece
+    __shared__ int win_skew[NT];      // the window's first byte in it
+    __shared__ unsigned win_sign[NT];
+    for (int k0 = 0; k0 < K; k0 += NT) {
+      const int kn = min(NT, K - k0);
+      if (k0) __syncthreads();  // the last tile's windows are read
+      if ((int)threadIdx.x < kn) {
+        const long long i = g * K + k0 + threadIdx.x;
+        const int r0 = slice_start(__ldg(row0 + i), R, WR);
+        const int b0 = slice_start(__ldg(col0 + i), C, WC) * E;
+        win_at[threadIdx.x] = r0 * row_bytes + b0 / VB * VB;
+        win_skew[threadIdx.x] = b0 % VB;
+        win_sign[threadIdx.x] = static_cast<unsigned>(
+            __ldg(sign + k0 + threadIdx.x));
+      }
+      __syncthreads();
+      for (int kk = 0; kk < kn; ++kk)
+        acc += part_of(bytes + win_at[kk], win_skew[kk]) * win_sign[kk];
+    }
+  }
+  // one redux.sync a warp (sm_80 and later), then warp 0 over the warps
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  acc = __reduce_add_sync(0xffffffffu, acc);
   if (lane == 0) warp_sums[warp] = acc;
   __syncthreads();
   if (warp == 0) {
-    acc = lane < kThreads / 32 ? warp_sums[lane] : 0u;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      acc += __shfl_down_sync(0xffffffffu, acc, o);
+    acc = __reduce_add_sync(0xffffffffu,
+                            lane < NT / 32 ? warp_sums[lane] : 0u);
     if (lane == 0) out[g] = static_cast<int>(acc);
   }
 }
@@ -240,6 +374,49 @@ cudaError_t launch_convert(const void* src, int R, int C, const int* row0,
   return cudaGetLastError();
 }
 
+template <typename T, int VB>
+cudaError_t launch_sums_by(const T* src, int R, int C, const int* row0,
+                           const int* col0, const int* sign, int G, int K,
+                           int WR, int WC, bool wide, int* out,
+                           cudaStream_t s) {
+  if (wide)
+    window_sums_kernel<T, VB, kSumWideThreads, kSumWideVecs, true>
+        <<<G, kSumWideThreads, 0, s>>>(src, R, C, row0, col0, sign, K, WR,
+                                       WC, out);
+  else
+    window_sums_kernel<T, VB, kSumThreads, kSumVecs, false>
+        <<<G, kSumThreads, 0, s>>>(src, R, C, row0, col0, sign, K, WR, WC,
+                                   out);
+  return cudaGetLastError();
+}
+
+// K5c: the piece size from the rows' alignment, the block from G against
+// the current device's SM count.
+template <typename T>
+cudaError_t launch_sums(const void* src, int R, int C, const int* row0,
+                        const int* col0, const int* sign, int G, int K,
+                        int WR, int WC, int* out, cudaStream_t s) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const bool wide = G <= sms;
+  const T* t = static_cast<const T*>(src);
+  const long long row_bytes = (long long)C * sizeof(T);
+  const uintptr_t at = reinterpret_cast<uintptr_t>(src);
+  if (row_bytes % 16 == 0 && at % 16 == 0)
+    return launch_sums_by<T, 16>(t, R, C, row0, col0, sign, G, K, WR, WC,
+                                 wide, out, s);
+  if (row_bytes % 4 == 0 && at % 4 == 0)
+    return launch_sums_by<T, 4>(t, R, C, row0, col0, sign, G, K, WR, WC,
+                                wide, out, s);
+  if constexpr (sizeof(T) == 1)
+    return launch_sums_by<T, 1>(t, R, C, row0, col0, sign, G, K, WR, WC,
+                                wide, out, s);
+  return cudaErrorMisalignedAddress;  // an int32 array off its 4 bytes
+}
+
 }  // namespace
 
 extern "C" {
@@ -294,15 +471,12 @@ int strive_window_sums(const void* src, int src_type, int R, int C,
   if (WR > R || WC > C) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (src_type == kU8)
-    window_sums_kernel<uint8_t><<<G, kThreads, 0, s>>>(
-        static_cast<const uint8_t*>(src), R, C, row0, col0, sign, K, WR, WC,
-        out);
-  else if (src_type == kI32)
-    window_sums_kernel<int><<<G, kThreads, 0, s>>>(
-        static_cast<const int*>(src), R, C, row0, col0, sign, K, WR, WC, out);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return (int)launch_sums<uint8_t>(src, R, C, row0, col0, sign, G, K, WR,
+                                     WC, out, s);
+  if (src_type == kI32)
+    return (int)launch_sums<int>(src, R, C, row0, col0, sign, G, K, WR, WC,
+                                 out, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // w: (T, R, C) bf16 as 16-bit words; idx: (T, P) int32; out: (T, C, P)

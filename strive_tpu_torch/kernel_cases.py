@@ -1,7 +1,8 @@
-"""The inputs that hold K2 ``footprint_coll_point`` and K4b ``window_take``
-to their plain versions, shared by ``chip_smoke.py`` and the tests: the
-main path's K2 inputs, both kernels' edge cases, and the check of K2's
-contract (:func:`coll_point_error`)."""
+"""The inputs that hold K2 ``footprint_coll_point``, K4b ``window_take`` and
+K5c ``window_sums`` to their plain versions, shared by ``chip_smoke.py``,
+``tools/kernel_variants.py`` and the tests: the main path's K2 inputs, the
+three kernels' edge cases, and the check of K2's contract
+(:func:`coll_point_error`)."""
 
 from __future__ import annotations
 
@@ -143,3 +144,129 @@ def take_cases(seed=0):
         idx.reshape(-1)[:len(ends)] = ends
         out[f"N{N}_Q{Q}"] = (wins, idx.astype(np.int32))
     return out
+
+
+def _wide_int32(rng, shape):
+    """int32 values of 2^28 to 2^31, the first half of the rows negative:
+    window sums wrap past 2^31 both ways."""
+    x = rng.integers(2 ** 28, 2 ** 31, shape).astype(np.int32)
+    x[:shape[0] // 2] *= -1
+    return x
+
+
+def sums_cases(seed=0):
+    """K5c's edge cases as numpy, ``{name: (src (R, C) uint8 or int32,
+    row0 (G, K) i32, col0 (G, K) i32, sign (K,) i32, WR, WC)}``, one for
+    each of the kernel's paths and edges:
+
+    - ``uint8``, ``int32``: 37 outputs x 3 windows of 64x192 with signs
+      (1, -1, 3) and starts that clamp or wrap; the int32 sums wrap past
+      2^31 both ways;
+    - ``res_{u8,i32}_WC{n}``: 16 windows of each WC in {1, 3, 15, 16, 17,
+      61, 192, C} whose first columns take every residue 0-15, on rows of
+      a multiple of 16 bytes (16-byte vectors);
+    - ``WR1``, ``WR3``, ``WRR``: one row, three rows and every row; on C =
+      1000 uint8 and C = 333 int32 (rows of a multiple of 4 bytes only:
+      4-byte words);
+    - ``G1_K5``: one output of five windows with signs (1, -1, 2, -3, 7) on
+      C = 1001 uint8 (rows of neither: single bytes);
+    - ``wrap_C333``: int32 sums that wrap both ways on the word path;
+    - ``G4_wide``: 4 outputs of 2 windows, a wide block each on a card of
+      4 SMs or more; ``G300``: 300 outputs, more than an H100 has SMs, in
+      the narrow blocks; ``K0``: 3 outputs of no window (0 each).
+    """
+    rng = np.random.default_rng(seed)
+
+    def starts(G, K, R, C):
+        return (rng.integers(-R, 2 * R, (G, K)).astype(np.int32),
+                rng.integers(-C, 2 * C, (G, K)).astype(np.int32))
+
+    def u8(R, C):
+        return rng.integers(0, 256, (R, C)).astype(np.uint8)
+
+    out = {}
+    sign3 = np.array([1, -1, 3], np.int32)
+    for name, src in (("uint8", u8(300, 1000)),
+                      ("int32", _wide_int32(rng, (256, 640)))):
+        R, C = src.shape
+        row0, col0 = starts(37, 3, R, C)
+        row0[0], col0[0] = [R - 64, 0, R // 2 - 32], [C - 192, 1, 5]
+        out[name] = (src, row0, col0, sign3, 64, 192)
+    for tag, src in (("u8", u8(80, 1024)),
+                     ("i32", rng.integers(-2 ** 31, 2 ** 31, (80, 640))
+                      .astype(np.int32))):
+        R, C = src.shape
+        for WC in (1, 3, 15, 16, 17, 61, 192, C):
+            row0 = rng.integers(0, R - 7, (16, 1)).astype(np.int32)
+            col0 = (16 * rng.integers(0, (C - WC) // 16 + 1, 16)
+                    + np.arange(16))[:, None].astype(np.int32)
+            out[f"res_{tag}_WC{WC}"] = (src, row0, col0,
+                                        np.ones(1, np.int32), 7, WC)
+    sign2 = np.array([2, -1], np.int32)
+    for src in (u8(120, 1000), _wide_int32(rng, (120, 333))):
+        R, C = src.shape
+        tag = "u8" if src.dtype == np.uint8 else "i32"
+        for WR, G in ((1, 6), (3, 2), (R, 3)):
+            row0, col0 = starts(G, 2, R, C)
+            out[f"WR{'R' if WR == R else WR}_{tag}"] = (src, row0, col0,
+                                                       sign2, WR, 150)
+    src = u8(90, 1001)
+    row0, col0 = starts(1, 5, 90, 1001)
+    out["G1_K5"] = (src, row0, col0, np.array([1, -1, 2, -3, 7], np.int32),
+                    40, 100)
+    src = _wide_int32(rng, (200, 333))
+    row0, col0 = starts(5, 2, 200, 333)
+    out["wrap_C333"] = (src, row0, col0, np.array([1, -1], np.int32), 100,
+                        300)
+    src = u8(256, 1024)
+    row0, col0 = starts(4, 2, 256, 1024)
+    out["G4_wide"] = (src, row0, col0, np.array([1, -1], np.int32), 64,
+                         192)
+    row0, col0 = starts(300, 1, 256, 1024)
+    out["G300"] = (src, row0, col0, np.ones(1, np.int32), 16, 61)
+    none = np.zeros((3, 0), np.int32)
+    out["K0"] = (src, none, none, np.zeros(0, np.int32), 16, 61)
+    return out
+
+
+def sums_args(case, device):
+    """``window_sums``' arguments for one ``sums_cases`` entry."""
+    src, row0, col0, sign, WR, WC = case
+    return (torch.from_numpy(src).to(device), torch.from_numpy(row0).to(device),
+            torch.from_numpy(col0).to(device),
+            torch.from_numpy(sign).to(device), WR, WC)
+
+
+def bisect_path_args(device):
+    """K5's arguments at the gather-probe path's shape, ``{kernel: args}``:
+    the 2048 window origins (32 agents x 64 tiles) of
+    ``probe_onehot_crop.py``'s 64x192 window on its (2048, 1024) uint8
+    raster for K5b and K5c (one window an output), each tile's
+    window-local rows for K5d, and K5a on (8192, 1024) f32 in groups of 8
+    rows (the bytes of K1's output)."""
+    from .probes import bisect_kernels as bk
+    from .probes import onehot_crop as oc
+
+    probe = oc.PROBES["dma"]
+    x = oc._inputs(probe, device)
+    N, L, W = probe["N"], probe["L"], probe["W"]
+    tiles = [oc.tileize(x[k], N, L, W) for k in ("py", "px", "outside")]
+    row0, col0, ly, _ = oc.tile_windows(*tiles, x["mapix"], probe["H"],
+                                        probe["Wp"], x["flat"].shape[0],
+                                        "dma")
+    WR, WC = oc.WINDOWS["dma"]
+    flat = x["flat"]
+    r, c = row0.reshape(-1).contiguous(), col0.reshape(-1).contiguous()
+    w = bk.window_convert_plain(flat, r, c, WR, WC, torch.float32).to(
+        torch.bfloat16)
+    rng = np.random.default_rng(8)
+    xs = torch.from_numpy(rng.standard_normal((8192, 1024)).astype(
+        np.float32)).to(device)
+    fs = torch.from_numpy(rng.standard_normal(1024).astype(np.float32)).to(
+        device)
+    one = torch.ones(1, dtype=torch.int32, device=device)
+    return {"scale_rows": (xs, fs, 8),
+            "window_convert": (flat, r, c, WR, WC, torch.int32),
+            "window_sums": (flat, r[:, None].contiguous(),
+                            c[:, None].contiguous(), one, WR, WC),
+            "onehot_rows": (w, ly.reshape(-1, ly.shape[-1]).contiguous())}

@@ -177,6 +177,13 @@ def window_sums(src, row0, col0, sign, WR, WC):
     (r, c) = (row0[g, k], col0[g, k]), modulo 2^32 as int32 (an int32 sum
     wraps; modular addition is exact in any order).
 
+    One block an output reads the window rows in aligned pieces, masked
+    at the window's edges: 16-byte vectors where ``C * src.element_size()``
+    and ``src``'s address are multiples of 16, else 4-byte words where they
+    are multiples of 4, else bytes. While G is at most the card's SM count
+    the block is a wide one (its rows spread over more threads); the design
+    note in ``csrc/bisect.cu`` says why.
+
     :param src: (R, C) uint8 or int32
     :param row0, col0: (G, K) int32 starts (:func:`slice_start`)
     :param sign: (K,) int32

@@ -23,6 +23,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from torch_helpers import n
 
+from strive_tpu_torch import kernel_cases as kc
 from strive_tpu_torch.probes import bisect_kernels as bk
 from strive_tpu_torch.probes import mosaic_bisect as mb
 from strive_tpu_torch.utils import build
@@ -138,20 +139,13 @@ def test_window_convert_matches_dynamic_slice(src, out):
         n(side), np.concatenate(list(np.asarray(want)), axis=1))
 
 
-@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
-def test_window_sums_match_jnp_int32_sum(dtype):
-    """Signed sums of K windows per output; the int32 windows overflow both
-    ways and wrap as ``jnp.sum(..., dtype=int32)`` wraps."""
-    rng = np.random.default_rng(3)
-    R, C, WR, WC, G = 48, 64, 16, 32, 7
-    if dtype == np.int32:
-        x = rng.integers(2 ** 28, 2 ** 31, (R, C)).astype(dtype)
-        x[: R // 2] *= -1
-    else:
-        x = rng.integers(0, 256, (R, C)).astype(dtype)
-    sign = np.array([1, -1, 3], dtype=np.int32)
-    row0 = rng.integers(-R, 2 * R, (G, 3)).astype(np.int32)
-    col0 = rng.integers(-C, 2 * C, (G, 3)).astype(np.int32)
+@pytest.mark.parametrize("case", list(kc.sums_cases()))
+def test_window_sums_match_jnp_int32_sum(case):
+    """Signed sums of K windows per output on K5c's shared edge cases
+    (``kernel_cases.sums_cases``: every start residue, narrow and whole
+    windows, one row and every row, each load path); the int32 windows
+    overflow both ways and wrap as ``jnp.sum(..., dtype=int32)`` wraps."""
+    x, row0, col0, sign, WR, WC = kc.sums_cases()[case]
 
     def one(rows, cols):
         wins = jax.vmap(lambda r, c: jnp.sum(jax.lax.dynamic_slice(
@@ -159,11 +153,10 @@ def test_window_sums_match_jnp_int32_sum(dtype):
         return jnp.sum(wins * jnp.asarray(sign), dtype=jnp.int32)
 
     want = np.asarray(jax.vmap(one)(row0, col0))
-    got = bk.sums(torch.from_numpy(x), i32(row0), i32(col0), i32(sign), WR,
-                  WC)
+    got = bk.sums(*kc.sums_args((x, row0, col0, sign, WR, WC), "cpu"))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(n(got), want)
-    if dtype == np.int32:
+    if case in ("int32", "wrap_C333"):
         assert (want < 0).any() and (want > 0).any()
 
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from strive_tpu_torch import kernel_cases as kc
 from strive_tpu_torch.probes import bisect_kernels as bk
 from strive_tpu_torch.probes import mosaic_bisect as mb
 from strive_tpu_torch.utils import timing
@@ -108,25 +109,37 @@ def test_window_convert_refuses_other_conversions(dev):
         bk.window_convert(src, z, z, 8, 8, torch.int32)
 
 
-@pytest.mark.parametrize("src_dtype", [torch.uint8, torch.int32])
-def test_window_sums_match_plain_at_edges(dev, src_dtype):
-    """Sums that wrap past 2^31 both ways, K = 3 signed windows, starts that
-    clamp or wrap."""
-    rng = np.random.default_rng(5)
-    R, C, WR, WC = 256, 640, 64, 192
-    if src_dtype == torch.int32:
-        src = i32(rng.integers(2 ** 28, 2 ** 31, (R, C)), dev)
-        src[:R // 2] *= -1
-    else:
-        src = _raster(rng, (R, C), torch.uint8, dev)
-    row0 = i32(rng.integers(-R, 2 * R, (37, 3)), dev)
-    col0 = i32(rng.integers(-C, 2 * C, (37, 3)), dev)
-    row0[0] = i32([R - WR, 0, R // 2 - WR // 2], dev)
-    col0[0] = i32([C - WC, 1, 5], dev)
-    sign = i32([1, -1, 3], dev)
-    got = _same("window_sums", (src, row0, col0, sign, WR, WC))
-    if src_dtype == torch.int32:
+@pytest.mark.parametrize("case", list(kc.sums_cases()))
+def test_window_sums_match_plain_at_edges(dev, case):
+    """K5c's shared edge cases (``kernel_cases.sums_cases``): every start
+    residue, narrow and whole windows, sums that wrap past 2^31 both ways,
+    each load path (16-byte vectors, 4-byte words, bytes), a few outputs
+    in wide blocks and more outputs than SMs in narrow ones."""
+    got = _same("window_sums", kc.sums_args(kc.sums_cases()[case], dev))
+    if case in ("int32", "wrap_C333"):
         assert (got < 0).any() and (got > 0).any()
+
+
+@pytest.mark.parametrize("offset", [1, 4])
+def test_window_sums_unaligned_view(dev, offset):
+    """A contiguous uint8 view whose rows are 1024 bytes but start 1 or 4
+    bytes into its buffer takes the byte or the word path."""
+    rng = np.random.default_rng(offset)
+    buf = _raster(rng, (1 + 64 * 1024 + 15,), torch.uint8, dev)
+    src = buf[offset:offset + 64 * 1024].view(64, 1024)
+    row0 = i32(rng.integers(-64, 128, (5, 2)), dev)
+    col0 = i32(rng.integers(-1024, 2048, (5, 2)), dev)
+    _same("window_sums", (src, row0, col0, i32([1, -2], dev), 17, 61))
+
+
+def test_window_sums_at_the_path_shape(dev):
+    """2048 windows of 64x192 on a (2048, 1024) uint8 raster, one output
+    each: the narrow blocks, 16-byte vectors at every start residue."""
+    rng = np.random.default_rng(8)
+    src = _raster(rng, (2048, 1024), torch.uint8, dev)
+    row0 = i32(rng.integers(0, 2048 - 64, (2048, 1)), dev)
+    col0 = i32(rng.integers(0, 1024 - 192, (2048, 1)), dev)
+    _same("window_sums", (src, row0, col0, i32([1], dev), 64, 192))
 
 
 def test_onehot_rows_match_plain_out_of_range(dev):

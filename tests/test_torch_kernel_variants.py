@@ -1,7 +1,8 @@
 """The launch-shape sweep of ``tools/kernel_variants.py``, on the CPU: each
-variant's copy of ``crop.cu`` or ``window.cu`` differs from the port's
-source in the constants it names and nowhere else, so a change to the
-kernels that the sweep's edits no longer match fails here, not on the card.
+variant's copy of ``crop.cu``, ``window.cu`` or ``bisect.cu`` differs from
+the port's source in the constants it names and nowhere else, so a change
+to the kernels that the sweep's edits no longer match fails here, not on
+the card.
 """
 
 import pytest
@@ -11,7 +12,8 @@ from tools import kernel_variants as kv
 
 SOURCES = kv.variant_sources()
 CHANGED = ("constexpr int kFoot", "constexpr int kTake", "__stcs(p, v);",
-           "return __ldcs(p);")
+           "return __ldcs(p);", "constexpr int kSum",
+           "const uint4 u = ok ? __ldg(", "if constexpr (WIDE) {")
 
 
 def test_port_variants_are_the_sources():
@@ -19,8 +21,12 @@ def test_port_variants_are_the_sources():
                                      (build.CSRC / "crop.cu").read_text())
     assert SOURCES["take"]["port"] == ("window",
                                        (build.CSRC / "window.cu").read_text())
+    assert SOURCES["sums"]["port"] == ("bisect",
+                                       (build.CSRC / "bisect.cu").read_text())
     assert len(SOURCES["k2"]) == len(kv.K2_SHAPES) + 1
     assert len(SOURCES["take"]) == len(kv.TAKE_SHAPES) + 1
+    assert len(SOURCES["sums"]) == len(kv.SUMS_SHAPES) + 3
+    assert set(SOURCES) == set(kv.KERNELS) == set(kv.SOURCES)
 
 
 @pytest.mark.parametrize("kernel,label", [
@@ -34,6 +40,8 @@ def test_variant_changes_its_constants_alone(kernel, label):
     for a, _ in diff:
         assert a.strip().startswith(CHANGED), a
     if kernel == "take":  # kTakeVec is replaced in every variant
+        assert diff
+    if kernel == "sums" and label != "threads64x16_wide512x2":
         assert diff
 
 

@@ -1,31 +1,43 @@
-"""Launch-shape variants of K2 ``footprint_coll_point`` and K4b
-``window_take``, timed on the card beside the port's kernels and an
-earlier checkout's.
+"""Launch-shape variants of K2 ``footprint_coll_point``, K4b
+``window_take`` and K5c ``window_sums``, timed on the card beside the
+port's kernels and an earlier checkout's.
 
-    python -m tools.kernel_variants [--parent DIR]
+    python -m tools.kernel_variants [--parent DIR] [--kernels k2 take sums]
 
-Each variant is a copy of ``strive_tpu_torch/csrc/crop.cu`` (K2) or
-``window.cu`` (K4b) with some of the kernel's constants replaced
-(:func:`variant_sources`; every replaced text must occur once in the
-source): for K2 the threads per car and the loads in flight per thread,
-for K4b the threads per block, the blocks per SM and the outputs per
-thread of the layout by SM, the evict-first hints on or off, and the share
-of L2 the windows may fill before the take turns to its flat layout. The
-copies are built under ``build/variants/`` with the port's nvcc flags, one
-nvcc each, all in parallel, and so are the same two sources of an earlier
-checkout with ``--parent`` (``DIR/strive_tpu_torch/csrc``, whose C entry
-points take the same arguments). Every build is held against the plain
-versions on the inputs it is timed at and on the edge cases of
-``strive_tpu_torch.kernel_cases``: K2 at the main path's shape (1152 cars
-x 39x16 samples on 2 maps of 2048 px), K4b at probe 1's (32 windows of
-512^2, 65,536 indices each; int32, uint8, the first 8 int32 windows, whose
-8 MB stay in L2, and probe 3's 32 int32 windows of 576^2 and 640^2, which
-fill 85% and 105% of the L2). Then ``ROUNDS`` rounds of device times
-(``utils.timing.cuda_ms`` through the wrappers): the parent first and
-last, the others in order and then in reverse between. K4b's streaming
-floor is ``out.copy_(idx)`` into an output of its dtype: the index bytes
-read and the output bytes written, without the gathers. Prints one JSON
-line with the card's name and power limit and every time; needs a card.
+Each variant is a copy of ``strive_tpu_torch/csrc/crop.cu`` (K2),
+``window.cu`` (K4b) or ``bisect.cu`` (K5c) with some of the kernel's
+constants replaced (:func:`variant_sources`; every replaced text must occur
+once in the source): for K2 the threads per car and the loads in flight
+per thread, for K4b the threads per block, the blocks per SM and the
+outputs per thread of the layout by SM, the evict-first hints on or off,
+and the share of L2 the windows may fill before the take turns to its
+flat layout, for K5c the threads per block and the pieces a thread loads
+before it sums them, of the block used while the outputs outnumber the
+SMs and of the wide block used while they do not, and the way each
+reads its windows' starts (staged in shared memory or read by every
+thread).
+The copies are built under ``build/variants/`` with the port's nvcc
+flags, one nvcc each, all in parallel, and so are the same three sources
+of an earlier checkout with ``--parent`` (``DIR/strive_tpu_torch/csrc``,
+whose C entry points take the same arguments). Every build is held
+against the plain versions on the inputs it is timed at and on the edge
+cases of ``strive_tpu_torch.kernel_cases``: K2 at the main path's shape
+(1152 cars x 39x16 samples on 2 maps of 2048 px), K4b at probe 1's (32
+windows of 512^2, 65,536 indices each; int32, uint8, the first 8 int32
+windows, whose 8 MB stay in L2, and probe 3's 32 int32 windows of 576^2
+and 640^2, which fill 85% and 105% of the L2), K5c at the gather-probe
+path's shape (2048 windows of 64x192 on a (2048, 1024) uint8 raster) and
+at the four Mosaic-bisect variants' (bit for bit against their ``want``
+too). Then ``ROUNDS`` rounds of device times (``utils.timing.cuda_ms``
+through the wrappers): the parent first and last, the others in order and
+then in reverse between. K4b's streaming floor is ``out.copy_(idx)`` into
+an output of its dtype: the index bytes read and the output bytes
+written, without the gathers. K5c's floors are the launch
+(``torch.cuda._sleep(0)``) and a pass of as many 16-byte loads as K5c
+makes over its L2-resident raster (``L2_READ_CU``), from a full card of
+blocks at the path's shape and from G blocks at the scripts'.
+Prints one JSON line with the card's name and power limit and every
+time; needs a card.
 """
 
 from __future__ import annotations
@@ -43,6 +55,8 @@ import torch
 
 from strive_tpu_torch import kernel_cases as kc
 from strive_tpu_torch.maps import crop_kernel
+from strive_tpu_torch.probes import bisect_kernels as bk
+from strive_tpu_torch.probes import mosaic_bisect as mb
 from strive_tpu_torch.probes import window_kernels as wk
 from strive_tpu_torch.utils import build, launch
 
@@ -61,6 +75,66 @@ TAKE_SHAPES = ((1024, 1, 4, True, 90), (1024, 1, 8, True, 90),
                (1024, 1, 16, True, 90), (1024, 1, 4, False, 90),
                (1024, 2, 4, True, 90), (256, 8, 4, True, 90),
                (1024, 1, 4, True, 1000), (1024, 1, 4, True, 0))
+# (threads per block, pieces a thread loads before it sums them) where G
+# exceeds the SM count (the gather-probe path's shape), then the same for
+# the wide block of G <= the SM count (the bisect scripts' shapes), and
+# whether 16-byte pieces load through L2 only (ld.global.cg) instead of
+# the read-only L1 path; the port's is (64, 16, 512, 2, off). (64, 16, 64,
+# 16) and (512, 2, 512, 2) take one block shape for every G.
+SUMS_SHAPES = ((64, 16, 64, 16, False), (512, 2, 512, 2, False),
+               (64, 8, 256, 2, False), (64, 16, 512, 2, False),
+               (64, 16, 512, 4, False), (128, 4, 512, 1, False),
+               (128, 8, 1024, 1, False), (128, 16, 1024, 2, False),
+               (256, 4, 256, 4, False), (256, 8, 512, 8, False),
+               (64, 16, 512, 2, True))
+# the Mosaic-bisect variants that run K5c, timed at their own shapes
+SUMS_VARIANTS = (mb.v_prefetch_indexmap, mb.v_same_array_two_specs,
+                 mb.v_prefetch_indexmap_u8, mb.v_dma_dyn_in_fori)
+KERNELS = ("k2", "take", "sums")
+SOURCES = {"k2": "crop", "take": "window", "sums": "bisect"}
+
+# The L2 read floor: n 16-byte loads over the vectors [0, mask] of src (a
+# power of two of them, resident in L2), four in flight a thread, with no
+# start to fetch, no masks and no reduction; a thread stores only if its
+# sum hits a value, so no load is dropped and nothing is written.
+L2_READ_CU = r"""
+#include <cuda_runtime.h>
+
+__global__ void __launch_bounds__(256)
+l2_read_kernel(const uint4* __restrict__ src, unsigned mask, long long n,
+               unsigned* __restrict__ out) {
+  const long long step = (long long)gridDim.x * 256;
+  unsigned acc = 0;
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n; i += 4 * step) {
+    uint4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const long long j = i + u * step;
+      v[u] = j < n ? __ldg(src + (j & mask)) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc += v[u].x + v[u].y + v[u].z + v[u].w;
+  }
+  if (acc == 0x9e3779b9u) out[blockIdx.x] = acc;
+}
+
+extern "C" {
+const char* strive_cuda_error(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+int strive_l2_read(const void* src, unsigned mask, long long n, int blocks,
+                   unsigned* out, void* stream) {
+  l2_read_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(src), mask, n, out);
+  return (int)cudaGetLastError();
+}
+}
+"""
+L2_READ = launch.Library("l2_read", {
+    # src, mask, n, blocks, out, stream
+    "strive_l2_read": [launch.PTR, ctypes.c_uint, ctypes.c_longlong,
+                       launch.INT, launch.PTR, launch.PTR]})
 
 
 def _k2_edits(threads, samples):
@@ -85,6 +159,21 @@ def _take_edits(threads, per_sm, vec, hints, l2_percent):
     return edits
 
 
+def _sums_edits(threads, vecs, wide_threads, wide_vecs, cg):
+    edits = {"constexpr int kSumThreads = 64;":
+             f"constexpr int kSumThreads = {threads};",
+             "constexpr int kSumVecs = 16;":
+             f"constexpr int kSumVecs = {vecs};",
+             "constexpr int kSumWideThreads = 512;":
+             f"constexpr int kSumWideThreads = {wide_threads};",
+             "constexpr int kSumWideVecs = 2;":
+             f"constexpr int kSumWideVecs = {wide_vecs};"}
+    if cg:
+        edits["ok ? __ldg(reinterpret_cast<const uint4*>(p))"] = \
+            "ok ? __ldcg(reinterpret_cast<const uint4*>(p))"
+    return edits
+
+
 def patched(text, edits):
     """``text`` with each key of ``edits`` replaced by its value; raise
     unless every key occurs exactly once."""
@@ -96,10 +185,12 @@ def patched(text, edits):
 
 
 def variant_sources(csrc=build.CSRC):
-    """{kernel ("k2" or "take"): {label: (source name, CUDA text)}}: the
-    port's sources as they are ("port") and every shape's copy."""
+    """{kernel ("k2", "take" or "sums"): {label: (source name, CUDA
+    text)}}: the port's sources as they are ("port") and every shape's
+    copy."""
     crop = (Path(csrc) / "crop.cu").read_text()
     window = (Path(csrc) / "window.cu").read_text()
+    bisect = (Path(csrc) / "bisect.cu").read_text()
     k2 = {"port": ("crop", crop)}
     for t, s in K2_SHAPES:
         k2[f"threads{t}_samples{s}"] = ("crop",
@@ -109,7 +200,14 @@ def variant_sources(csrc=build.CSRC):
         take[f"threads{t}_sm{b}_vec{v}_{'hints' if h else 'nohints'}"
              f"_l2at{l2}"] = ("window",
                               patched(window, _take_edits(t, b, v, h, l2)))
-    return {"k2": k2, "take": take}
+    sums = {"port": ("bisect", bisect)}
+    for t, v, wt, wv, cg in SUMS_SHAPES:
+        sums[f"threads{t}x{v}_wide{wt}x{wv}{'_cg' if cg else ''}"] = (
+            "bisect", patched(bisect, _sums_edits(t, v, wt, wv, cg)))
+    for how, flag in (("direct", "true"), ("staged", "false")):
+        sums[f"starts_{how}_for_every_G"] = ("bisect", patched(
+            bisect, {"  if constexpr (WIDE) {": f"  if constexpr ({flag}) {{"}))
+    return {"k2": k2, "take": take, "sums": sums}
 
 
 def _compile(jobs):
@@ -144,23 +242,26 @@ def _bound(like, path):
     return lib
 
 
-def _builds(parent):
-    """{kernel: {label: Library}} for every variant, built in parallel."""
-    sources = variant_sources()
+def _builds(parent, kernels):
+    """{kernel: {label: Library}} for every variant of ``kernels``, and the
+    L2 read floor's Library, built in parallel."""
+    sources = {k: g for k, g in variant_sources().items() if k in kernels}
     if parent is not None:
         csrc = Path(parent) / "strive_tpu_torch" / "csrc"
-        sources["k2"]["parent"] = ("crop", (csrc / "crop.cu").read_text())
-        sources["take"]["parent"] = ("window",
-                                     (csrc / "window.cu").read_text())
+        for kernel, group in sources.items():
+            name = SOURCES[kernel]
+            group["parent"] = (name, (csrc / f"{name}.cu").read_text())
     jobs = {OUT_DIR / kernel / label / f"{name}.so": text
             for kernel, group in sources.items()
             for label, (name, text) in group.items()}
+    floor = OUT_DIR / "l2_read" / "l2_read.so"
+    jobs[floor] = L2_READ_CU
     _compile(jobs)
-    like = {"k2": crop_kernel._LIB, "take": wk._LIB}
+    like = {"k2": crop_kernel._LIB, "take": wk._LIB, "sums": bk._LIB}
     return {kernel: {label: _bound(like[kernel],
                                    OUT_DIR / kernel / label / f"{name}.so")
                      for label, (name, _) in group.items()}
-            for kernel, group in sources.items()}
+            for kernel, group in sources.items()}, _bound(L2_READ, floor)
 
 
 @contextlib.contextmanager
@@ -196,15 +297,29 @@ def _probe_take(dev, win=512):
     return torch.from_numpy(wins).to(dev), torch.from_numpy(idx).to(dev)
 
 
-def run(parent=None):
-    """Check and time every variant. :return: the JSON-able result"""
-    from strive_tpu_torch.utils.timing import cuda_ms
-
-    dev = torch.device("cuda")
-    libs = _builds(parent)
+def _k2(libs, dev, cuda_ms):
+    """K2's builds held to the plain version, then timed at the main
+    path's shape: ``{"k2_main_path_ms": ..., "k2_max_abs_err": ...}``."""
     store, k2_main = kc.main_path_k2(dev)
     k2_cases = [kc.coll_point_args(store, c, dev)
                 for c in kc.coll_point_cases(2048).values()]
+    k2_err, k2 = {}, {}
+    for label, lib in libs.items():
+        with _built_as(crop_kernel, lib):
+            k2_err[label] = max(kc.coll_point_error(a)
+                                for a in [k2_main] + k2_cases)
+
+        def timed(lib=lib):
+            with _built_as(crop_kernel, lib):
+                return cuda_ms(lambda: crop_kernel.footprint_coll_point(
+                    *k2_main), REPS)
+        k2[label] = timed
+    return {"k2_main_path_ms": _rounds(k2), "k2_max_abs_err": k2_err}
+
+
+def _take(libs, dev, cuda_ms):
+    """K4b's builds held to the plain version, then timed at the probes'
+    shapes beside the streaming floor: ``{"take_<shape>_ms": ...}``."""
     wins, idx = _probe_take(dev)
     take_main = {"probe1_int32": (wins, idx),
                  "probe1_uint8": (wins.to(torch.uint8), idx),
@@ -215,19 +330,7 @@ def run(parent=None):
     for w, i in kc.take_cases().values():
         w, i = torch.from_numpy(w).to(dev), torch.from_numpy(i).to(dev)
         take_edges += [(w, i), (w.to(torch.uint8), i)]
-
-    k2_err, k2 = {}, {}
-    for label, lib in libs["k2"].items():
-        with _built_as(crop_kernel, lib):
-            k2_err[label] = max(kc.coll_point_error(a)
-                                for a in [k2_main] + k2_cases)
-
-        def timed(lib=lib):
-            with _built_as(crop_kernel, lib):
-                return cuda_ms(lambda: crop_kernel.footprint_coll_point(
-                    *k2_main), REPS)
-        k2[label] = timed
-    for label, lib in libs["take"].items():
+    for label, lib in libs.items():
         with _built_as(wk, lib):
             for w, i in list(take_main.values()) + take_edges:
                 if label == "parent" and w.shape[0] > 65535:
@@ -240,7 +343,7 @@ def run(parent=None):
     takes = {}
     for case, (w, i) in take_main.items():
         fns = {}
-        for label, lib in libs["take"].items():
+        for label, lib in libs.items():
             def timed(lib=lib, w=w, i=i):
                 with _built_as(wk, lib):
                     return cuda_ms(lambda: wk.window_take(w, i), REPS)
@@ -248,27 +351,107 @@ def run(parent=None):
         out = torch.empty(i.shape, dtype=w.dtype, device=dev)
         fns["floor_copy"] = lambda out=out, i=i: cuda_ms(
             lambda: out.copy_(i), REPS)
-        takes[case] = _rounds(fns)
+        takes[f"take_{case}_ms"] = _rounds(fns)
+    return takes
+
+
+def _sums_pieces(args):
+    """The 16-byte pieces K5c loads for ``args`` (rows of a multiple of
+    16 bytes): the vectors each window row touches, over all rows."""
+    src, row0, col0, _, WR, WC = args
+    E = src.element_size()
+    b0 = bk.slice_start(col0.reshape(-1).long(), src.shape[1], WC) * E
+    return int(((b0 + WC * E - 1) // 16 - b0 // 16 + 1).sum()) * WR
+
+
+def _sums(libs, floor_lib, dev, cuda_ms):
+    """K5c's builds held bit for bit to the plain version (and to each
+    variant's ``want``), then timed at the gather-probe path's shape and
+    at the four variants' beside the launch floor and, at the path's
+    shape, the L2 read floor: ``{"sums_<shape>_ms": ...}``."""
+    main = {"path": kc.bisect_path_args(dev)["window_sums"]}
+    wants = {}
+    for v in SUMS_VARIANTS:
+        case = v(dev)
+        main[v.__name__], wants[v.__name__] = case.args, case.want
+    edges = [kc.sums_args(c, dev) for c in kc.sums_cases().values()]
+    for label, lib in libs.items():
+        with _built_as(bk, lib):
+            for name, args in list(main.items()) + [("edge", a)
+                                                    for a in edges]:
+                got = bk.window_sums(*args)
+                want = bk.window_sums_plain(*args)
+                if not torch.equal(got, want) or (
+                        wants.get(name) is not None
+                        and not torch.equal(got, wants[name])):
+                    raise AssertionError(f"window_sums {label} differs at "
+                                         f"{name} {tuple(args[1].shape)}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    scratch = torch.empty(sms * 8, dtype=torch.int32, device=dev)
+    sums = {}
+    for case, args in main.items():
+        fns = {}
+        for label, lib in libs.items():
+            def timed(lib=lib, args=args):
+                with _built_as(bk, lib):
+                    return cuda_ms(lambda: bk.window_sums(*args), REPS)
+            fns[label] = timed
+        fns["floor_launch"] = lambda: cuda_ms(
+            lambda: torch.cuda._sleep(0), REPS)
+        # as many 16-byte loads as K5c makes, from as many blocks as it
+        # launches while the outputs outnumber the SMs, else from G blocks
+        src, G = args[0], args[1].shape[0]
+        vectors = src.numel() * src.element_size() // 16
+        n = _sums_pieces(args)
+        blocks = sms * 8 if G > sms else G
+
+        def l2_read(src=src, vectors=vectors, n=n, blocks=blocks):
+            floor_lib.launch("strive_l2_read", src.data_ptr(), vectors - 1,
+                             n, blocks, scratch.data_ptr(),
+                             launch.stream(dev))
+        if vectors & (vectors - 1) == 0:
+            fns["floor_l2_read"] = lambda f=l2_read: cuda_ms(f, REPS)
+        sums[f"sums_{case}_ms"] = _rounds(fns)
+        sums[f"sums_{case}_l2_read_bytes"] = n * 16
+    return sums
+
+
+def run(parent=None, kernels=KERNELS):
+    """Check and time every variant of ``kernels``. :return: the
+    JSON-able result"""
+    from strive_tpu_torch.utils.timing import cuda_ms
+
+    dev = torch.device("cuda")
+    libs, floor_lib = _builds(parent, kernels)
+    res = {}
+    if "k2" in kernels:
+        res.update(_k2(libs["k2"], dev, cuda_ms))
+    if "take" in kernels:
+        res.update(_take(libs["take"], dev, cuda_ms))
+    if "sums" in kernels:
+        res.update(_sums(libs["sums"], floor_lib, dev, cuda_ms))
     card = subprocess.run(
         ["nvidia-smi", "-i", str(torch.cuda.current_device()),
          "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()
-    return {"variants": "K2 footprint_coll_point, K4b window_take",
+    names = {"k2": "K2 footprint_coll_point", "take": "K4b window_take",
+             "sums": "K5c window_sums"}
+    return {"variants": ", ".join(names[k] for k in kernels),
             "card": card, "kind": torch.cuda.get_device_name(dev),
-            "rounds": ROUNDS, "reps": REPS,
-            "k2_main_path_ms": _rounds(k2), "k2_max_abs_err": k2_err,
-            **{f"take_{k}_ms": v for k, v in takes.items()}}
+            "rounds": ROUNDS, "reps": REPS, **res}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="an earlier checkout whose "
                     "strive_tpu_torch/csrc is timed beside this one")
+    ap.add_argument("--kernels", nargs="+", choices=KERNELS,
+                    default=list(KERNELS), help="the kernels to sweep")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_variants: needs a CUDA device", file=sys.stderr)
         return 1
-    res = run(args.parent)
+    res = run(args.parent, tuple(args.kernels))
     print(f"card: {res['card']}", file=sys.stderr)
     for key in [k for k in res if k.endswith("_ms")]:
         for label, ms in res[key].items():
