@@ -27,6 +27,26 @@ at 4 px/m. Phases:
    0.05, feasibility time 2; checks finite losses and that the launch
    counters rose by exactly 1 + 12 x 20 + 12 crops and 20 + 1 footprints,
    and that no window or bisect kernel ran;
+6b. the closed loop ('hardcode' planner, re-rolled every iteration), on
+   the same model, store and scenes, with ``synthetic_lanegraph(512 m,
+   spacing 64 m)`` on both maps and the 'default' planner config:
+   a. the scenes' own futures through the device planner on the card,
+      held against the numpy (host) planner at JAX's decision-parity
+      tolerance (0.5 m, 5 degrees) and against the device planner on the
+      CPU from the same inputs within 1e-3 m and 1e-3 rad; a scene past
+      1e-3 is printed as a decision that flipped on float error and held
+      at 0.5 m / 5 degrees;
+   b. phase 5's small run in closed loop with the device planner (a 64 m
+      lane graph over its 256 px store, 3 iterations): card against CPU,
+      loss history rtol 1e-3, final latents atol 1e-4;
+   c. 20 full-width iterations on the host backend after a 2-iteration
+      warm-up: finite losses, trajectories and latents, the counters risen
+      by exactly 1 + 12 x 20 + 12 crops and 20 + 1 footprints (no window
+      or bisect kernel); it/s, then the planner's ms per call and share of
+      wall time in a second run with each call fenced by
+      ``torch.cuda.synchronize()``;
+   d. the same on the device backend, plus the planner's kernels and
+      device busy ms per call (``torch.profiler`` over one call);
 7. the window kernels of the gather probes, K3 ``window_crop_tiles``, K4a
    ``window_extract`` and K4b ``window_take``: each against its plain
    version at the probe scripts' shapes and on edge cases (windows at the
@@ -54,12 +74,16 @@ at 4 px/m. Phases:
    (``probes.mosaic_bisect.run``) with the K5 counters set to 0: every
    variant correct, and the counters equal to the launches worked out from
    ``REPS`` and each variant's kernel;
-9. prints the probes' and the variants' JSON lines, the ``kernels`` JSON
-   line, the main path's it/s beside the card's name and power limit, and
-   last the device JSON line. Each kernel's ``path`` names the path its
-   ``launches`` were counted on: the open-loop main path for K1 and K2,
-   the gather-probe path for K3 and K4, the Mosaic-bisect probes for K5
-   (K3-K5 launch 0 times on the main path: ``main_path_launches``).
+9. prints the probes' and the variants' JSON lines, the ``closed_loop``
+   JSON line (B, NA, FT, iters; it/s, planner ms per call and share for
+   each backend; the device planner's kernels per call; the parity
+   numbers of a; the card), the ``kernels`` JSON line, the main path's it/s
+   beside the card's name and power limit, and last the device JSON line.
+   Each kernel's ``path`` names the path its ``launches`` were counted on:
+   the open-loop main path for K1 and K2, the gather-probe path for K3 and
+   K4, the Mosaic-bisect probes for K5 (K3-K5 launch 0 times on the main
+   path: ``main_path_launches``); every entry's ``closed_loop_launches``
+   is its count in one closed-loop run of c and d.
 
 Any failure raises, and the script exits non-zero.
 """
@@ -122,13 +146,10 @@ def profile_iterations(torch, model, scene, store, emb, iters=3):
 
     from strive_tpu_torch.optim.adv import run_adv_gen_optim
 
-    prior = emb["prior_out"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_adv_gen_optim(model, prior[0], 0.05, WEIGHTS, scene, store, iters,
-                          emb, "ego", (prior[0][:, 0], prior[1][:, 0]), prior,
-                          2, None)
+        run_optim(run_adv_gen_optim, model, scene, store, emb, iters)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kern = [e for e in prof.key_averages()
@@ -587,6 +608,240 @@ def bisect_phase(torch, rates, card):
     return entries, line
 
 
+CL_DT = 0.5  # the scenes' step (s): the planner's observation spacing
+CL_MAPS = ("map0", "map1")  # the store's maps, by map_idx
+SMALL_KW = dict(map_bounds=(-4.0, -8.0, 12.0, 8.0), conv_kernels=(5, 3, 3),
+                conv_strides=(2, 2, 2), conv_filters=(8, 8, 16), FT=3)
+
+
+def small_setup(torch, tm, norm, device):
+    """Phase 5's small run on ``device``: the tiny model (32 px crops,
+    FT=3), a 2 x 256 px store, 2 scenes of 2-4 agents, and its embedding."""
+    from strive_tpu_torch.data.synthetic import synthetic_scene_list
+    from strive_tpu_torch.maps.store import synthetic_map_store
+    from strive_tpu_torch.scene import pad_scene_arrays
+
+    m = build_model(torch, tm, norm, 32, device=device, **SMALL_KW)
+    st = synthetic_map_store(num_maps=2, size_px=256, channels=4,
+                             device=device)
+    sc = pad_scene_arrays(synthetic_scene_list(
+        num_scenes=2, num_maps=2, map_size_px=256, PT=PT, FT=3,
+        min_agents=2, max_agents=4), 4, 2, device=device)
+    with torch.no_grad():
+        emb = m.embed(sc, st)
+    return m, st, sc, emb
+
+
+def run_optim(run_adv_gen_optim, model, scene, store, emb, iters, **kw):
+    """The adversarial optimization from the prior mean, bench.py's weights,
+    lr 0.05, feasibility time 2: 'ego' unless ``kw`` names a planner fn."""
+    prior = emb["prior_out"]
+    return run_adv_gen_optim(
+        model, prior[0], 0.05, WEIGHTS, scene, store, iters, emb,
+        "hardcode" if kw else "ego", (prior[0][:, 0], prior[1][:, 0]), prior,
+        2, None, **kw)
+
+
+def device_planner(torch, sc, lg, device):
+    """The device planner on ``device``, reset on scene batch ``sc``."""
+    from strive_tpu_torch.normalize import (att_normalizer_for,
+                                            state_normalizer_for)
+    from strive_tpu_torch.planners import PLANNER_CONFIGS
+    from strive_tpu_torch.planners.device_planner import DeviceRulePlanner
+
+    cats = ("car", "truck")
+    planner = DeviceRulePlanner({m: lg for m in CL_MAPS}, CL_MAPS,
+                                PLANNER_CONFIGS["default"], device=device)
+    planner.reset(state_normalizer_for(cats).unnormalize(
+        sc.past_gt[:, :, -1]).to(device),
+        att_normalizer_for(cats).unnormalize(sc.lw).to(device),
+        sc.mask.to(device), sc.map_idx.to(device))
+    return planner
+
+
+def host_planner_fn(sc, lg, state_norm, att_norm):
+    """The numpy planner's closed-loop function on scene batch ``sc``."""
+    from strive_tpu_torch.planners import PLANNER_CONFIGS, RulePlanner
+    from strive_tpu_torch.planners.host_bridge import (make_planner_host_fn,
+                                                       reset_planner)
+
+    planner = RulePlanner({m: lg for m in CL_MAPS}, CL_MAPS,
+                          PLANNER_CONFIGS["default"])
+    reset_planner(planner, state_norm.unnormalize(sc.past_gt[:, :, -1]),
+                  att_norm.unnormalize(sc.lw), sc.mask, sc.map_idx)
+    return make_planner_host_fn(planner, sc.mask, state_norm, CL_DT,
+                                sc.future_gt.shape[2])
+
+
+def compare_futures(np, state_norm, got, want, tol_m, tol_rad, label):
+    """Per-scene largest position (m) and heading (rad) difference of two
+    (B, T, 4) NORMALIZED planner futures. A scene past (tol_m, tol_rad) is
+    printed as a decision that flipped on float error and held at the
+    decision-parity tolerance of 0.5 m and 5 degrees; past that, raises.
+
+    :return: {max_m, max_rad, flipped_scenes}"""
+    g = state_norm.unnormalize(got.detach().cpu()).numpy().astype(np.float64)
+    w = state_norm.unnormalize(want.detach().cpu()).numpy().astype(np.float64)
+    pos = np.linalg.norm(g[..., :2] - w[..., :2], axis=-1).max(1)
+    ang = np.abs(np.angle(np.exp(1j * (np.arctan2(g[..., 3], g[..., 2])
+                                       - np.arctan2(w[..., 3], w[..., 2]))))
+                 ).max(1)
+    if not (np.isfinite(g).all() and np.isfinite(w).all()):
+        raise AssertionError(f"{label}: planner futures not finite")
+    flipped = [b for b in range(len(pos))
+               if pos[b] >= tol_m or ang[b] >= tol_rad]
+    for b in flipped:
+        log(f"{label}: scene {b} differs by {pos[b]:.4g} m / {ang[b]:.4g} "
+            f"rad, past {tol_m} m / {tol_rad} rad: a planner decision that "
+            f"flipped on float error; held at 0.5 m / 5 degrees")
+    if (pos >= 0.5).any() or (ang >= np.radians(5.0)).any():
+        raise AssertionError(f"{label}: planner futures differ by "
+                             f"{pos.max():.4g} m / {ang.max():.4g} rad")
+    return {"max_m": float(pos.max()), "max_rad": float(ang.max()),
+            "flipped_scenes": flipped}
+
+
+def planner_profile(torch, fn, pred):
+    """Kernels, memory copies and device busy ms on the card in one call of
+    ``fn`` (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(pred)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    copies = sum(e.count for e in ev if e.key.startswith(("Memcpy", "Memset")))
+    return {"planner_launches_per_call": sum(e.count for e in ev) - copies,
+            "planner_copies_per_call": copies,
+            "planner_device_busy_ms_per_call":
+                sum(e.self_device_time_total for e in ev) / 1e3}
+
+
+def closed_loop_phase(torch, np, tm, model, scene, store, norm, counters):
+    """Phase 6b: the closed loop (module doc, a-d).
+
+    :return: the ``closed_loop`` JSON line's dict (card excluded), the
+        launch counts of a full-width closed-loop run"""
+    from strive_tpu_torch.maps.lanegraph import synthetic_lanegraph
+    from strive_tpu_torch.normalize import (att_normalizer_for,
+                                            state_normalizer_for)
+    from strive_tpu_torch.optim.adv import run_adv_gen_optim
+    from strive_tpu_torch.scene import SceneBatch
+
+    cats = ("car", "truck")
+    sn, an = state_normalizer_for(cats), att_normalizer_for(cats)
+    lg = synthetic_lanegraph(extent_m=STORE_PX / 4.0, spacing_m=64.0)
+    out = {"B": B, "NA": NA, "FT": FT, "iters": ITERS,
+           "lanegraph": f"synthetic_lanegraph(extent_m={STORE_PX / 4.0}, "
+                        "spacing_m=64.0) on both maps",
+           "planner_refresh_every": 1}
+
+    # --- a. the scenes' own futures through the planners -----------------
+    t0 = time.time()
+    card = device_planner(torch, scene, lg, "cuda")
+    log(f"closed loop: device planner tables built in {time.time() - t0:.1f} s")
+    scene_cpu = SceneBatch(**{k: None if v is None else v.cpu()
+                              for k, v in vars(scene).items()})
+    cpu = device_planner(torch, scene_cpu, lg, "cpu")
+    host_fn = host_planner_fn(scene, lg, sn, an)
+    card_fn, cpu_fn = (p.make_fn(sn, CL_DT, FT) for p in (card, cpu))
+    fut = scene.future_gt[..., :4]
+    on_card = card_fn(fut)
+    if on_card.device.type != "cuda":
+        raise AssertionError("the device planner ran off the card")
+    out["card_vs_host"] = compare_futures(
+        np, sn, on_card, host_fn(fut), 0.5, np.radians(5.0),
+        "a. device planner on the card vs the host planner")
+    out["card_vs_cpu"] = compare_futures(
+        np, sn, on_card, cpu_fn(fut.cpu()), 1e-3, 1e-3,
+        "a. device planner on the card vs on the CPU")
+    log(f"a. planners on the scenes' futures: card vs host "
+        f"{out['card_vs_host']}, card vs CPU {out['card_vs_cpu']}")
+
+    # --- b. a small closed loop, card against CPU -------------------------
+    small_lg = synthetic_lanegraph(extent_m=64.0, spacing_m=16.0)
+    runs = []
+    for d in ("cpu", "cuda"):
+        m, st, sc, emb = small_setup(torch, tm, norm, d)
+        fn = device_planner(torch, sc, small_lg, d).make_fn(sn, CL_DT, 3)
+        res = run_optim(run_adv_gen_optim, m, sc, st, emb, 3,
+                        planner_rollout_fn=fn)
+        runs.append([t.cpu() for t in (res[0], res[4], res[1][:, 0])])
+    try:
+        torch.testing.assert_close(runs[1][1], runs[0][1], rtol=1e-3, atol=0)
+        torch.testing.assert_close(runs[1][0], runs[0][0], rtol=0, atol=1e-4)
+    except AssertionError:
+        compare_futures(np, sn, runs[1][2], runs[0][2], 1e-3, 1e-3,
+                        "b. small closed loop, card vs CPU, final planner")
+        raise
+    log("b. small closed loop (3 iterations, device planner): card agrees "
+        "with the CPU")
+
+    # --- c, d. the full-width closed loop on each backend -----------------
+    launches = None
+    for backend, fn in (("host", host_fn), ("device", card_fn)):
+        with torch.no_grad():
+            emb = model.embed(scene, store)
+        run_optim(run_adv_gen_optim, model, scene, store, emb, 2,
+                  planner_rollout_fn=fn)  # warm-up
+        torch.cuda.synchronize()
+        for counts in counters:
+            for k in counts:
+                counts[k] = 0
+        with torch.no_grad():
+            emb = model.embed(scene, store)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        z, result, _, _, losses, _ = run_optim(
+            run_adv_gen_optim, model, scene, store, emb, ITERS,
+            planner_rollout_fn=fn)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: v for counts in counters for k, v in counts.items()}
+        expected = {k: 0 for k in got}
+        expected.update({"map_crop": 1 + FT * ITERS + FT,
+                         "footprint_coll_point": ITERS + 1})
+        if got != expected:
+            raise AssertionError(f"{backend} closed loop: launches {got}, "
+                                 f"expected {expected}")
+        launches = got
+        if losses.shape != (ITERS,) or not bool(torch.isfinite(losses).all()):
+            raise AssertionError(f"{backend} closed loop: losses {losses}")
+        if result.shape != (B, NA, FT, 4) \
+                or not bool(torch.isfinite(result).all()) \
+                or not bool(torch.isfinite(z).all()):
+            raise AssertionError(f"{backend} closed loop: result not finite")
+        # the planner fenced by synchronize, in a separately timed run
+        times = []
+
+        def fenced(pred, fn=fn):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = fn(pred)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            return res
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_optim(run_adv_gen_optim, model, scene, store, emb, ITERS,
+                  planner_rollout_fn=fenced)
+        torch.cuda.synchronize()
+        fenced_wall = time.perf_counter() - t0
+        entry = {"iters_per_sec": ITERS / wall,
+                 "planner_calls": len(times),
+                 "planner_ms_per_call": 1e3 * sum(times) / len(times),
+                 "planner_share": sum(times) / fenced_wall,
+                 "fenced_iters_per_sec": ITERS / fenced_wall}
+        if backend == "device":
+            entry.update(planner_profile(torch, card_fn, result))
+        out[backend] = entry
+        log(f"{backend} closed loop: {ITERS} iterations, losses "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}, {entry}")
+    return out, launches
+
+
 def main():
     # one card: the first of those visible, numbered as nvidia-smi numbers it
     os.environ.setdefault("CUDA_DEVICE_ORDER", "PCI_BUS_ID")
@@ -732,17 +987,9 @@ def main():
         f"{k2_plain_ms:.4f} ms, bound {k2_bound:.4f} ms by {k2_by})")
 
     # --- 5. small run: card (kernels) against CPU (plain versions) ---------
-    small_kw = dict(map_bounds=(-4.0, -8.0, 12.0, 8.0), conv_kernels=(5, 3, 3),
-                    conv_strides=(2, 2, 2), conv_filters=(8, 8, 16), FT=3)
     runs = []
     for d in ("cpu", "cuda"):
-        m = build_model(torch, tm, norm, 32, device=d, **small_kw)
-        st = synthetic_map_store(num_maps=2, size_px=256, channels=4, device=d)
-        sc = pad_scene_arrays(synthetic_scene_list(
-            num_scenes=2, num_maps=2, map_size_px=256, PT=PT, FT=3,
-            min_agents=2, max_agents=4), 4, 2, device=d)
-        with torch.no_grad():
-            emb = m.embed(sc, st)
+        m, st, sc, emb = small_setup(torch, tm, norm, d)
         pri = emb["prior_out"]
         out = run_adv_gen_optim(m, pri[0], 0.05, WEIGHTS, sc, st, 3, emb,
                                 "ego", (pri[0][:, 0], pri[1][:, 0]), pri, 1,
@@ -758,10 +1005,7 @@ def main():
     def main_path(iters):
         with torch.no_grad():
             emb = model.embed(scene, store)
-        prior = emb["prior_out"]
-        out = run_adv_gen_optim(
-            model, prior[0], 0.05, WEIGHTS, scene, store, iters, emb, "ego",
-            (prior[0][:, 0], prior[1][:, 0]), prior, 2, None)
+        out = run_optim(run_adv_gen_optim, model, scene, store, emb, iters)
         torch.cuda.synchronize()
         return out
 
@@ -790,12 +1034,9 @@ def main():
     # iteration time without embed: time the optimization alone once more
     with torch.no_grad():
         emb = model.embed(scene, store)
-    prior = emb["prior_out"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run_adv_gen_optim(model, prior[0], 0.05, WEIGHTS, scene, store, ITERS,
-                      emb, "ego", (prior[0][:, 0], prior[1][:, 0]), prior, 2,
-                      None)
+    run_optim(run_adv_gen_optim, model, scene, store, emb, ITERS)
     torch.cuda.synchronize()
     its = ITERS / (time.perf_counter() - t0)
     log(f"main path: {ITERS} iterations, losses {losses[0]:.4f} -> "
@@ -805,6 +1046,12 @@ def main():
     for k, entry in kernels.items():
         entry["launches"] = launches[k]
         entry["path"] = "main path (embed + open-loop adv optimization)"
+
+    # --- 6b. the closed loop ------------------------------------------------
+    closed_loop, cl_launches = closed_loop_phase(
+        torch, np, tm, model, scene, store, norm, counters)
+    for k, entry in kernels.items():
+        entry["closed_loop_launches"] = cl_launches[k]
 
     # --- 7. K3, K4a, K4b and the gather-probe path -------------------------
     k1_gelem_s = n_pix / (k1_ms * 1e-3) / 1e9
@@ -816,6 +1063,7 @@ def main():
     kernels.update(bisect_entries)
     print(json.dumps(probes))
     print(json.dumps(bisect))
+    print(json.dumps({"closed_loop": {**closed_loop, "card": card}}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"main_path": "embed + open-loop adv optimization",
                       "B": B, "NA": NA, "FT": FT, "crop_px": MAP_PX,

@@ -1,8 +1,22 @@
-"""Adversarial latent optimization of a scene batch, open loop.
+"""Adversarial latent optimization of a scene batch.
 
-Port of ``strive_tpu/optim/adv.py`` (reference ``utils/adv_gen_optim.py``)
-in 'ego' mode: the recorded planner future is injected into slot 0 of the
-rollout (ext_future) and is the attack target.
+Port of ``strive_tpu/optim/adv.py`` (reference ``utils/adv_gen_optim.py``).
+
+- Open loop ('ego'): the recorded planner future is injected into slot 0
+  of the rollout (ext_future) and is the attack target.
+- Closed loop ('hardcode'): the rule-based planner reacts to the current
+  rollout. ``planner_rollout_fn(future_pred_norm) -> (B, FT, 4)``
+  (``planners.host_bridge.make_planner_host_fn`` for the numpy planner,
+  ``planners.device_planner.DeviceRulePlanner.make_fn`` for the one on the
+  card) is called on the detached decode of iterations 0, k, 2k, ...
+  (``planner_refresh_every`` = k) and its future is held for the next k
+  Adam steps, with one Adam state through the whole loop. The decode at
+  the start of each block is that block's first decode, so this is JAX's
+  chunked sequence (decode, planner, k steps) with one decode an
+  iteration. The model predicts the ego itself (no ext_future), the
+  target-matching loss pulls that prediction toward the planner future,
+  and the adversarial loss targets the model's own ego prediction
+  (reference :134-149).
 
 Each iteration decodes once and takes two ``torch.autograd.grad`` pulls
 through that one graph: the tgt-matching loss's cotangent reaches the
@@ -18,9 +32,11 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 from ..losses.adv import adv_gen_loss, tgt_matching_loss
+from ..losses.metrics import check_single_veh_coll
 from .loop import Adam
 
 
@@ -43,26 +59,38 @@ def _combine_z(tgt_z, other_z):
 
 
 class AdvObjective:
-    """The open-loop adversarial objective of one scene batch.
+    """The adversarial objective of one scene batch.
 
     :param init_other_z: (B, NA, D) latents the init_z term pulls toward
-    :param planner_fut: (B, FT, 4) NORMALIZED recorded planner future: the
-        ext_future of every decode and the attack target
+    :param planner_fut: (B, FT, 4) NORMALIZED planner future, the target of
+        the tgt-matching loss. Open loop (``planner_fn`` None): the recorded
+        future, also the ext_future of every decode and the attack target.
+        Closed loop: the planner's reaction, set on every refresh (None
+        before the first).
+    :param planner_fn: closed loop: ``fn(future_pred_norm) -> (B, FT, 4)``
+    :param future_len: FT of the decodes; the planner future's when None
     """
 
     def __init__(self, model, scene, map_store, embed_info, loss_weights,
                  tgt_prior_distrib, other_prior_distrib, init_other_z,
                  planner_fut, feasibility_time, feasibility_infront_min,
-                 attack_agt_mask=None, veh_coll_buffer=0.1, ref_compat=True):
+                 attack_agt_mask=None, veh_coll_buffer=0.1, ref_compat=True,
+                 planner_fn=None, future_len=None):
         self.model, self.scene, self.map_store = model, scene, map_store
         self.embed_info, self.weights = embed_info, loss_weights
         self.tgt_prior, self.other_prior = tgt_prior_distrib, other_prior_distrib
         self.init_other_z, self.planner_fut = init_other_z, planner_fut
+        self.FT = future_len or planner_fut.shape[1]
+        self.planner_fn = planner_fn
         self.crash_min_t = feasibility_time
         self.crash_min_infront = feasibility_infront_min
         self.attack_agt_mask = attack_agt_mask
         self.veh_coll_buffer, self.ref_compat = veh_coll_buffer, ref_compat
         self.lw_unnorm = model.att_unnorm(scene.lw)
+
+    @property
+    def closed_loop(self):
+        return self.planner_fn is not None
 
     def unnorm(self, x):
         return x * self.model.sstd[:4] + self.model.smean[:4]
@@ -70,7 +98,7 @@ class AdvObjective:
     def decode(self, z, ext_future):
         return self.model.decode_embedding(
             z, self.embed_info, self.scene, self.map_store, ext_future,
-            self.planner_fut.shape[1])["future_pred"]
+            self.FT)["future_pred"]
 
     def tgt_loss(self, pred, tgt_z):
         return tgt_matching_loss(
@@ -78,9 +106,13 @@ class AdvObjective:
             self.tgt_prior, self.weights, agent_mask=self.scene.mask[:, 0],
             ref_compat=self.ref_compat)["loss"]
 
-    def adv_loss_full(self, pred, other_z):
+    def adv_loss_full(self, pred, other_z, tgt_traj=None):
+        """:param tgt_traj: (B, FT, 4) attack target; the planner future
+        when None"""
+        if tgt_traj is None:
+            tgt_traj = self.planner_fut
         return adv_gen_loss(
-            self.unnorm(pred), self.unnorm(self.planner_fut), other_z,
+            self.unnorm(pred), self.unnorm(tgt_traj), other_z,
             self.other_prior, lw=self.lw_unnorm, mask=self.scene.mask,
             mapixes=self.scene.map_idx, packed=self.map_store.packed,
             dx=self.map_store.dx, init_z=self.init_other_z,
@@ -89,18 +121,27 @@ class AdvObjective:
             crash_min_infront=self.crash_min_infront,
             attack_agt_mask=self.attack_agt_mask)
 
-    def value_and_grad(self, tgt_z, other_z):
+    def value_and_grad(self, tgt_z, other_z, refresh=False):
         """One decode, two autograd pulls (module doc).
 
+        :param refresh: closed loop: re-roll the planner on this decode
+            (detached) before the losses
         :return: (loss, grad wrt tgt_z (B, D), grad wrt other_z (B, NA, D))
         """
         tgt_z = tgt_z.detach().requires_grad_(True)
         other_z = other_z.detach().requires_grad_(True)
         z = _combine_z(tgt_z, other_z).detach().requires_grad_(True)
         with torch.enable_grad():
-            pred = self.decode(z, self.planner_fut)
+            pred = self.decode(z, None if self.closed_loop
+                               else self.planner_fut)
+            if refresh:
+                self.planner_fut = self.planner_fn(pred.detach())
             lt = self.tgt_loss(pred, tgt_z)
-            la = self.adv_loss_full(pred, other_z)["loss"]
+            # the adversarial loss sees the model's own ego prediction in
+            # closed loop, the recorded planner in open loop (reference :149)
+            la = self.adv_loss_full(
+                pred, other_z, pred[:, 0] if self.closed_loop else None
+            )["loss"]
             gz_t, g_tgt = torch.autograd.grad(
                 lt, (z, tgt_z), retain_graph=True, allow_unused=True)
             gz_a, g_other = torch.autograd.grad(
@@ -117,32 +158,45 @@ class AdvObjective:
 def run_adv_gen_optim(model, cur_z, lr, loss_weights, scene, map_store,
                       num_iters, embed_info, planner_name, tgt_prior_distrib,
                       other_prior_distrib, feasibility_time,
-                      feasibility_infront_min, attack_agt_mask=None,
-                      future_len=None, veh_coll_buffer=0.1, ref_compat=True):
+                      feasibility_infront_min, planner_rollout_fn=None,
+                      attack_agt_mask=None, future_len=None,
+                      veh_coll_buffer=0.1, ref_compat=True,
+                      planner_refresh_every=1):
     """
     :param cur_z: (B, NA, D) initial latents (ego at slot 0)
-    :param planner_name: 'ego' (open-loop replay); closed loop is not ported
+    :param planner_name: 'ego' (open-loop replay) or 'hardcode' (closed
+        loop, module doc)
+    :param planner_rollout_fn: for 'hardcode': ``fn(future_pred_norm (B,
+        NA, FT, 4)) -> (B, FT, 4)`` NORMALIZED, non-differentiable
+    :param planner_refresh_every: closed loop: planner re-roll period in
+        Adam iterations (1 = reference-exact)
     :param attack_agt_mask: optional (B, NA) fixed-attacker restriction
     :return: (final z (B,NA,D), final_result_traj (B,NA,FT,4) with the TRUE
         planner at slot 0, min_agt (B,), min_t (B,), loss history
         (num_iters,), internal_pred (B,NA,FT,4) — the model's own final
-        decode)
+        decode, whose ego slot is the internal planner prediction)
     """
-    if planner_name != "ego":
-        raise NotImplementedError("only the open-loop 'ego' planner is ported")
+    if planner_name not in ("ego", "hardcode"):
+        raise NotImplementedError(f"planner {planner_name!r} is not ported")
+    open_loop = planner_name == "ego"
+    if not open_loop and planner_rollout_fn is None:
+        raise ValueError("the 'hardcode' planner needs planner_rollout_fn")
     FT = future_len if future_len is not None else model.nfuture
-    planner_fut = scene.future_gt[:, 0, :FT, :4]
+    k = max(1, int(planner_refresh_every))
+    planner_fut = scene.future_gt[:, 0, :FT, :4] if open_loop else None
     obj = AdvObjective(model, scene, map_store, embed_info, loss_weights,
                        tgt_prior_distrib, other_prior_distrib, cur_z.detach(),
                        planner_fut, feasibility_time, feasibility_infront_min,
-                       attack_agt_mask, veh_coll_buffer, ref_compat)
+                       attack_agt_mask, veh_coll_buffer, ref_compat,
+                       None if open_loop else planner_rollout_fn, FT)
 
     with frozen_params(model):
         tgt_z, other_z = cur_z[:, 0].detach(), cur_z.detach()
         adam = Adam([tgt_z, other_z], lr)
         losses = []
-        for _ in range(num_iters):
-            loss, g_tgt, g_other = obj.value_and_grad(tgt_z, other_z)
+        for it in range(num_iters):
+            loss, g_tgt, g_other = obj.value_and_grad(
+                tgt_z, other_z, refresh=not open_loop and it % k == 0)
             tgt_z, other_z = adam.step([tgt_z, other_z], [g_tgt, g_other])
             losses.append(loss)
 
@@ -150,9 +204,33 @@ def run_adv_gen_optim(model, cur_z, lr, loss_weights, scene, map_store,
             z_final = _combine_z(tgt_z, other_z)
             final_pred = obj.decode(z_final, None)
             # the final pass targets the TRUE planner (reference :177-209)
+            if not open_loop:
+                planner_fut = planner_rollout_fn(final_pred)
             final_result = torch.cat([planner_fut[:, None],
                                       final_pred[:, 1:]], 1)
-            adv_final = obj.adv_loss_full(final_pred, z_final)
+            adv_final = obj.adv_loss_full(final_pred, z_final, planner_fut)
     losses = torch.stack(losses) if losses else torch.zeros(0)
     return (z_final, final_result, adv_final["min_agt"], adv_final["min_t"],
             losses, final_pred)
+
+
+def compute_adv_gen_success(final_result_traj, state_norm, att_norm, lw, mask,
+                            attack_agt):
+    """Did the attacker actually collide with the planner? (host numpy)
+
+    :param final_result_traj: (NA, FT, 4) NORMALIZED single scene, slot 0 =
+        true planner (tensor on any device, or numpy)
+    :param lw: (NA, 2) NORMALIZED; mask: (NA,)
+    :param attack_agt: dense agent index of the attacker (>= 1)
+    :return: (bool, veh_coll (N,), coll_time (N,))
+
+    Reference ``utils/adv_gen_optim.py:214-235``.
+    """
+    traj, lw, mask = (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
+                      else np.asarray(a)
+                      for a in (final_result_traj, lw, mask))
+    n = int(mask.sum())
+    fut = state_norm.unnormalize(traj[:n])
+    lw_u = att_norm.unnormalize(lw[:n])
+    coll, coll_t = check_single_veh_coll(fut[0], lw_u[0], fut[1:], lw_u[1:])
+    return bool(coll[int(attack_agt) - 1]), coll, coll_t

@@ -139,5 +139,5 @@ def test_three_iterations_match_jax(setup):
     np.testing.assert_allclose(n(result), n(jout[1]), rtol=0, atol=1e-4)
     np.testing.assert_allclose(n(pred), n(jout[5]), rtol=0, atol=1e-4)
     with pytest.raises(NotImplementedError):
-        t_run(tm, tp[0], 0.05, WEIGHTS, tsc, ts, 1, te, "hardcode",
+        t_run(tm, tp[0], 0.05, WEIGHTS, tsc, ts, 1, te, "no_such_planner",
               (tp[0][:, 0], tp[1][:, 0]), tp, FEAS_T, None)
