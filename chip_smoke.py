@@ -7,7 +7,9 @@ Drives the port's main path — ``TrafficModel.embed`` and then the open-loop
 drives the JAX package — at full width: B=4 scenes x NA=8 agents, PT=4,
 FT=12, 256 px crops, the default model widths, f32 with TF32 off, random
 weights from a seed, on a synthetic store of 2 maps x 2048 px x 4 channels
-at 4 px/m. Phases:
+at 4 px/m; the closed loop on the same; and the scenario-generation
+pipeline through its entry point, as ``scripts/adv_scenario_gen.py`` runs
+it, at the production config's widths (phase 9). Phases:
 
 1. the card's name and power limit (nvidia-smi); fails without CUDA;
 2. builds the CUDA kernels from ``strive_tpu_torch/csrc`` (nvcc, parallel);
@@ -47,6 +49,34 @@ at 4 px/m. Phases:
       ``torch.cuda.synchronize()``;
    d. the same on the device backend, plus the planner's kernels and
       device busy ms per call (``torch.profiler`` over one call);
+9. (run after 6b, before 7) the scenario-generation pipeline through the
+   port's entry point, ``strive_tpu_torch.scripts.adv_scenario_gen.main``:
+   a. K1 at prior sampling's shape (1 scene x 20 samples x 16 agents = 320
+      poses of 256 px, ``kernel_cases.sampling_crop_args``) bit-exact
+      against its plain version in both layouts, and K2 at the solution
+      loss's (one car a scene, B=4, 48 interpolated poses each,
+      ``kernel_cases.solution_k2``) within phase 4's tolerance; each timed
+      beside its plain version and its bound;
+   b. ``configs/adv_gen_synthetic.cfg`` with 3 iterations on 4 scenes,
+      on the card (cuDNN deterministic, TF32 off) and on the CPU: equal
+      stats, folders, attackers and attack steps, every file of the JAX
+      package's schema; the optimized trajectories and latents within
+      the measured bounds ``PARITY_TRAJ_M`` / ``PARITY_LATENT``;
+   c. ``configs/adv_gen_synth_hc_prod.cfg`` (without its ``ckpt`` line,
+      so random weights) at full width with 20 iterations on 6 candidate
+      scenes (one batch of B=4): finite final losses, every JSON of the
+      schema and read back by the port's ``read_adv_scenes``, and the
+      K1/K2 counters, set to 0
+      just before, equal to the launches worked out from the stages run
+      (1 + FT a sampling, 1 + 76 FT a fit, 101 FT a refit, 21 FT + 21
+      footprints an adversarial run, 20 x 16 + FT crops and 20 footprints
+      a solution run; no window or bisect kernel);
+   d. the solution optimization, which random weights never reach through
+      the pipeline: 3 iterations of phase 5's small run on the card against
+      the CPU (loss rtol 1e-3, latents atol 1e-4), then 20 iterations at
+      ``sol_future_len`` 16 on the main path's model, scenes and store
+      (the scenes' futures as the adversarial result): finite, the non-ego
+      rows equal to the input, 20 x 16 + 12 crops and 20 footprints;
 7. the window kernels of the gather probes, K3 ``window_crop_tiles``, K4a
    ``window_extract`` and K4b ``window_take``: each against its plain
    version at the probe scripts' shapes and on edge cases (windows at the
@@ -74,16 +104,21 @@ at 4 px/m. Phases:
    (``probes.mosaic_bisect.run``) with the K5 counters set to 0: every
    variant correct, and the counters equal to the launches worked out from
    ``REPS`` and each variant's kernel;
-9. prints the probes' and the variants' JSON lines, the ``closed_loop``
+10. prints the probes' and the variants' JSON lines, the ``closed_loop``
    JSON line (B, NA, FT, iters; it/s, planner ms per call and share for
    each backend; the device planner's kernels per call; the parity
-   numbers of a; the card), the ``kernels`` JSON line, the main path's it/s
+   numbers of a; the card), the ``pipeline`` JSON line (phase 9: per-stage
+   wall seconds and calls, sampling seconds a candidate, candidate scenes
+   an hour for the batch, the K1/K2 launches, b's largest differences, the
+   cuts in ``reduced``, the card), the ``kernels`` JSON line, the main path's it/s
    beside the card's name and power limit, and last the device JSON line.
    Each kernel's ``path`` names the path its ``launches`` were counted on:
    the open-loop main path for K1 and K2, the gather-probe path for K3 and
    K4, the Mosaic-bisect probes for K5 (K3-K5 launch 0 times on the main
    path: ``main_path_launches``); every entry's ``closed_loop_launches``
-   is its count in one closed-loop run of c and d.
+   is its count in one closed-loop run of c and d; K1's and K2's
+   ``pipeline_launches`` their counts in phase 9c and ``pipeline_shape``
+   their phase-9a timings.
 
 Any failure raises, and the script exits non-zero.
 """
@@ -93,6 +128,8 @@ import os
 import subprocess
 import sys
 import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 ITERS = 20
 B, NA, PT, FT, MAP_PX, STORE_PX = 4, 8, 4, 12, 256, 2048
@@ -131,6 +168,34 @@ def unique_raster_bytes(torch, queries, packed, dx, xys, mapix):
     M, H, W = packed.shape
     m, py, px = queries._pixel_index(H, W, dx, xys, mapix)
     return int(torch.unique((m * H + py) * W + px).numel())
+
+
+def crop_work(torch, queries, args):
+    """(bytes, float ops) of one K1 call on ``args``: the distinct raster
+    bytes its samples read (this run's data), its other inputs once, its
+    float32 output once; 9 float ops a sample."""
+    packed, dx, pos, mapix, lo, wo, C = args[:7]
+    xys = queries.rotate_grid(lo[None, :, None], wo[None, None, :],
+                              pos[:, :2], pos[:, 2:4])
+    n_pix = pos.shape[0] * lo.numel() * wo.numel()
+    nbytes = (unique_raster_bytes(torch, queries, packed, dx, xys, mapix)
+              + pos.numel() * 4 + mapix.numel() * 8 + dx.numel() * 4
+              + (lo.numel() + wo.numel()) * 4 + n_pix * C * 4)
+    return nbytes, n_pix * CROP_FLOPS_PER_PIXEL
+
+
+def footprint_work(torch, queries, args):
+    """(bytes, float ops) of one K2 call on ``args``: the distinct raster
+    bytes its 39x16 samples read, its inputs and outputs once; 13 float ops
+    a sample."""
+    packed, dx, cars, lw, cmap, lin_l, lin_w = args[:7]
+    P, L, W = cars.shape[0], lin_l.numel(), lin_w.numel()
+    samples = queries.gen_car_coords(cars[:, :2], cars[:, 2:4], L, W,
+                                     ls=lw[:, 0], ws=lw[:, 1])
+    nbytes = (unique_raster_bytes(torch, queries, packed, dx, samples, cmap)
+              + P * (16 + 8 + 8) + dx.numel() * 4 + (L + W) * 4
+              + P * (8 + 1 + 4))
+    return nbytes, P * L * W * FOOTPRINT_FLOPS_PER_SAMPLE
 
 
 def build_model(torch, tm, norm, map_px, **kw):
@@ -842,6 +907,316 @@ def closed_loop_phase(torch, np, tm, model, scene, store, norm, counters):
     return out, launches
 
 
+PIPE_CFG = "configs/adv_gen_synth_hc_prod.cfg"  # the full-width pipeline
+PIPE_ITERS = 20  # the config's 200, cut to fit the script's time limit
+# the config's 48 candidates, cut to the first 6 of the val split, whose
+# candidates 0, 2, 4 and 5 are feasible: one batch of B=4
+PIPE_SCENES = 6
+PARITY_CFG = "configs/adv_gen_synthetic.cfg"  # b: card against CPU
+# b's bounds on the optimized trajectories (m) and latents. Not 1e-2 /
+# 1e-3: the 75-iteration fit amplifies float noise (ROADMAP §3). Measured
+# on this config between two float orders: the port against strive_tpu on
+# the CPU 0.17 m / 0.55 (tests/test_torch_adv_scenario_gen.py), the card
+# against the CPU 0.092 m / 0.157 (PERF.md, the pipeline findings)
+PARITY_TRAJ_M, PARITY_LATENT = 0.2, 0.6
+SCHEMA = {"N", "dt", "map", "lw", "sem", "past", "fut_init", "fut_adv",
+          "fut_internal_ego", "attack_agt", "attack_t", "z_adv", "z_prior"}
+SOLVED_KEYS = {"fut_sol", "z_sol"}  # in adv_sol_success and sol_failed
+FOLDERS = ("adv_sol_success", "sol_failed", "adv_failed")
+
+
+def run_pipeline(argv, timings=None):
+    """The port's entry point in this process, its log lines to stderr."""
+    import contextlib
+
+    from strive_tpu_torch.scripts import adv_scenario_gen as gen
+
+    with contextlib.redirect_stdout(sys.stderr):
+        return gen.main(argv, timings)
+
+
+def scenario_jsons(np, out):
+    """{folder: {file: json dict}} of a run; raises unless every file has
+    the JAX package's schema, key for key, and finite numbers, and the
+    port's ``read_adv_scenes`` reads every folder back."""
+    from strive_tpu_torch.data.scenario_json import read_adv_scenes
+
+    res = {}
+    for d in FOLDERS:
+        path = os.path.join(out, "scenario_results", d)
+        names = sorted(os.listdir(path)) if os.path.isdir(path) else []
+        res[d] = {}
+        for name in names:
+            with open(os.path.join(path, name)) as f:
+                js = json.load(f)
+            want = SCHEMA | (SOLVED_KEYS if d != "adv_failed" else set())
+            if set(js) != want:
+                raise AssertionError(f"{d}/{name}: keys {sorted(js)}")
+            for k in want - {"map"}:
+                v = js[k]
+                vals = [v["mean"], v["var"]] if k == "z_prior" else [v]
+                if not all(np.isfinite(np.asarray(x, float)).all()
+                           for x in vals):
+                    raise AssertionError(f"{d}/{name}: {k} not finite")
+            res[d][name] = js
+        if names and len(read_adv_scenes(path)) != len(names):
+            raise AssertionError(f"read_adv_scenes read {path} short")
+    return res
+
+
+def pipeline_parity(np, card_out, cpu_out, card_stats, cpu_stats):
+    """b: the same run on the card and on the CPU: equal stats, folders,
+    attackers and attack steps; :return: the largest trajectory (m) and
+    latent differences, held at PARITY_TRAJ_M / PARITY_LATENT."""
+    if card_stats != cpu_stats:
+        raise AssertionError(f"stats: card {card_stats}, CPU {cpu_stats}")
+    a, b = scenario_jsons(np, card_out), scenario_jsons(np, cpu_out)
+    worst = {"traj_m": 0.0, "latent": 0.0, "scenes": 0}
+    for d in FOLDERS:
+        if sorted(a[d]) != sorted(b[d]):
+            raise AssertionError(f"{d}: card {sorted(a[d])}, CPU "
+                                 f"{sorted(b[d])}")
+        for name, x in a[d].items():
+            y = b[d][name]
+            if (x["attack_agt"], x["attack_t"]) != (y["attack_agt"],
+                                                    y["attack_t"]):
+                raise AssertionError(f"{d}/{name}: attack differs")
+            worst["scenes"] += 1
+            for k in x:
+                if k.startswith("fut_") or k in ("z_adv", "z_sol"):
+                    diff = float(np.abs(np.asarray(x[k])
+                                        - np.asarray(y[k])).max())
+                    key = "latent" if k.startswith("z_") else "traj_m"
+                    worst[key] = max(worst[key], diff)
+    if not worst["scenes"]:
+        raise AssertionError("b: no scene was saved")
+    if worst["traj_m"] > PARITY_TRAJ_M or worst["latent"] > PARITY_LATENT:
+        raise AssertionError(f"b: card against CPU {worst}")
+    return worst
+
+
+# the configs' sol_* weights (configs/adv_gen_*.cfg)
+SOL_WEIGHTS = {"coll_veh": 10.0, "coll_env": 10.0, "motion_prior": 0.005,
+               "init_z": 0.0, "motion_prior_ext": 0.001, "match_ext": 10.0}
+SOL_FT = 16  # the configs' sol_future_len
+
+
+def solution_stage(torch, tm, model, scene, store, norm, counters):
+    """Phase 9d: the solution optimization, which random weights never
+    reach through the pipeline (no adversarial success): 3 iterations of
+    phase 5's small run on the card against the CPU, then PIPE_ITERS
+    iterations at full width on the main path's model, scenes and store,
+    with the scenes' futures as the adversarial result.
+
+    :return: the ``pipeline`` line's ``d_solution`` dict"""
+    from strive_tpu_torch.optim.sol import (compute_sol_success,
+                                            run_find_solution_optim)
+    from strive_tpu_torch.normalize import (att_normalizer_for,
+                                            state_normalizer_for)
+
+    runs = []
+    for d in ("cpu", "cuda"):
+        m, st, sc, emb = small_setup(torch, tm, norm, d)
+        pri = emb["prior_out"]
+        out = run_find_solution_optim(m, pri[0], sc.future_gt[..., :4],
+                                      SMALL_KW["FT"] + 2, 0.05, SOL_WEIGHTS,
+                                      sc, st, 3, emb, pri, pri)
+        runs.append([t.cpu() for t in out])
+    torch.testing.assert_close(runs[1][2], runs[0][2], rtol=1e-3, atol=0)
+    torch.testing.assert_close(runs[1][0], runs[0][0], rtol=0, atol=1e-4)
+
+    with torch.no_grad():
+        emb = model.embed(scene, store)
+    pri = emb["prior_out"]
+    final = scene.future_gt[..., :4]
+    for counts in counters:
+        for k in counts:
+            counts[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    z, sol, losses = run_find_solution_optim(
+        model, pri[0], final, SOL_FT, 0.05, SOL_WEIGHTS, scene, store,
+        PIPE_ITERS, emb, pri, pri)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: v for counts in counters for k, v in counts.items()}
+    expected = dict.fromkeys(launches, 0)
+    expected.update(map_crop=PIPE_ITERS * SOL_FT + FT,
+                    footprint_coll_point=PIPE_ITERS)
+    if launches != expected:
+        raise AssertionError(f"d. launches {launches}, expected {expected}")
+    if not (bool(torch.isfinite(losses).all())
+            and bool(torch.isfinite(sol).all())
+            and bool(torch.isfinite(z).all())):
+        raise AssertionError("d. solution not finite")
+    if not torch.equal(sol[:, 1:], final[:, 1:]):
+        raise AssertionError("d. non-ego rows differ from the input")
+    cats = ("car", "truck")
+    solved = [compute_sol_success(sol[b], scene.take([b]), store,
+                                  state_normalizer_for(cats),
+                                  att_normalizer_for(cats))
+              for b in range(scene.B)]
+    out = {"B": scene.B, "NA": scene.NA, "sol_future_len": SOL_FT,
+           "iters": PIPE_ITERS, "seconds": secs,
+           "seconds_per_iteration": secs / PIPE_ITERS,
+           "final_loss": float(losses[-1]), "solved": solved,
+           "launches": {k: launches[k] for k in ("map_crop",
+                                                 "footprint_coll_point")},
+           "small_card_vs_cpu": "loss rtol 1e-3, latents atol 1e-4"}
+    log(f"d. solution optimization at full width: {out}")
+    return out
+
+
+def pipeline_phase(torch, np, rates, card, counters, kernels):
+    """Phase 9: the scenario-generation pipeline on the card (module doc).
+
+    :return: the ``pipeline`` JSON line's dict"""
+    from strive_tpu_torch import kernel_cases as kc
+    from strive_tpu_torch.maps import crop_kernel, queries
+    from strive_tpu_torch.scripts import adv_scenario_gen as gen
+    from strive_tpu_torch.utils.timing import cuda_ms
+
+    dev = torch.device("cuda")
+    line = {"pipeline": PIPE_CFG, "card": card}
+
+    # --- a. K1 and K2 at the pipeline's new shapes -------------------------
+    k1_args = kc.sampling_crop_args(dev)
+    for layout in ("nhwc", "nchw"):
+        args = (*k1_args[:-1], layout)
+        got = crop_kernel.map_crop(*args)
+        ref = crop_kernel.map_crop_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"a. map_crop at the sampling shape differs "
+                                 f"from plain ({layout})")
+        del got, ref
+    _, k2_args = kc.solution_k2(dev)
+    k2_err = kc.coll_point_error(k2_args)
+    shapes = {
+        "map_crop": ("sampling: 1 scene x 20 samples x 16 agents = "
+                     f"{k1_args[2].shape[0]} poses, 256 px", k1_args,
+                     crop_kernel.map_crop, crop_kernel.map_crop_plain,
+                     crop_work),
+        "footprint_coll_point": ("solution loss: 1 car a scene x B=4 x 48 "
+                                 f"interpolated poses = {k2_args[2].shape[0]}"
+                                 " cars", k2_args,
+                                 crop_kernel.footprint_coll_point,
+                                 crop_kernel.footprint_coll_point_plain,
+                                 footprint_work),
+    }
+    for name, (what, args, kern, plain, work) in shapes.items():
+        entry = {"shape": what,
+                 "ms": cuda_ms(lambda: kern(*args), 200),
+                 "plain_ms": cuda_ms(lambda: plain(*args), 20)}
+        entry["bound_ms"], entry["bound_by"] = bound_ms(
+            rates, *work(torch, queries, args))
+        kernels[name]["pipeline_shape"] = entry
+        log(f"a. {name} at the {what}: {entry['ms']:.4f} ms (plain "
+            f"{entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms by "
+            f"{entry['bound_by']})")
+    kernels["footprint_coll_point"]["pipeline_shape"]["max_abs_err"] = k2_err
+    log("a. map_crop bit-exact at the sampling shape; footprint_coll_point "
+        f"valid/frac exact, coll_pt max err {k2_err:.3g}")
+    torch.cuda.empty_cache()
+
+    # --- b. the entry point, card against CPU ------------------------------
+    build_dir = os.path.join(ROOT, "build", "chip_smoke")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # one result a run on the card
+    runs = {}
+    try:
+        for d in ("cuda", "cpu"):
+            out = os.path.join(build_dir, f"parity_{d}")
+            t0 = time.perf_counter()
+            stats = run_pipeline(["-c", os.path.join(ROOT, PARITY_CFG),
+                                  "--num_iters", "3", "--synth_scenes", "4",
+                                  "--max_scenes", "4", "--device", d,
+                                  "--out", out])
+            runs[d] = (out, stats, time.perf_counter() - t0)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    line["b_card_vs_cpu"] = pipeline_parity(np, runs["cuda"][0],
+                                            runs["cpu"][0], runs["cuda"][1],
+                                            runs["cpu"][1])
+    line["b_stats"] = runs["cuda"][1]
+    line["b_seconds"] = {d: r[2] for d, r in runs.items()}
+    log(f"b. {PARITY_CFG}, 3 iterations: card and CPU agree on stats "
+        f"{runs['cuda'][1]}, folders and attacks; largest differences "
+        f"{line['b_card_vs_cpu']}")
+
+    # --- c. the full-width pipeline -----------------------------------------
+    os.makedirs(build_dir, exist_ok=True)
+    cfg = os.path.join(build_dir, os.path.basename(PIPE_CFG))
+    with open(os.path.join(ROOT, PIPE_CFG)) as f:  # random weights: no ckpt
+        lines = [l for l in f if not l.startswith("ckpt:")]
+    with open(cfg, "w") as f:
+        f.writelines(lines)
+    out = os.path.join(build_dir, "full_width")
+    argv = ["-c", cfg, "--num_iters", str(PIPE_ITERS), "--synth_scenes",
+            str(PIPE_SCENES), "--max_scenes", str(PIPE_SCENES), "--device",
+            "cuda", "--out", out]
+    pc = gen.parse_cfg(argv)
+    timings = {}
+    for counts in counters:
+        for k in counts:
+            counts[k] = 0
+    t0 = time.perf_counter()
+    stats = run_pipeline(argv, timings)
+    wall = time.perf_counter() - t0
+    launches = {k: v for counts in counters for k, v in counts.items()}
+    calls = timings["calls"]
+    FTp, SFL, it = pc.future_len, pc.sol_future_len, pc.num_iters
+    expected = dict.fromkeys(launches, 0)
+    expected["map_crop"] = (
+        calls.get("sample", 0) * (1 + FTp)
+        + calls.get("init_fit", 0) * (1 + (gen.INIT_FIT_ITERS + 1) * FTp)
+        + calls.get("planner_refit", 0) * (gen.PLANNER_REFIT_ITERS + 1) * FTp
+        + calls.get("adversarial", 0) * (it + 1) * FTp
+        + calls.get("solution", 0) * (it * SFL + FTp))
+    expected["footprint_coll_point"] = (calls.get("adversarial", 0) * (it + 1)
+                                        + calls.get("solution", 0) * it)
+    if launches != expected:
+        raise AssertionError(f"c. launches {launches}, expected {expected} "
+                             f"from the stages {calls}")
+    losses = timings["final_loss"]
+    if not losses or not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"c. final losses {losses}")
+    jsons = scenario_jsons(np, out)
+    n_json = sum(len(v) for v in jsons.values())
+    if not calls.get("adversarial") or n_json != sum(
+            b for _, b, _ in timings["batches"]):
+        raise AssertionError(f"c. {n_json} scenario files for batches "
+                             f"{timings['batches']}")
+    for name in ("map_crop", "footprint_coll_point"):
+        kernels[name]["pipeline_launches"] = launches[name]
+    secs = timings["seconds"]
+    batch_secs = sum(t for t, _, _ in timings["batches"])
+    batch_scenes = sum(b for _, b, _ in timings["batches"])
+    line.update({
+        "config": f"{PIPE_CFG} without its ckpt line",
+        "reduced": {"num_iters": "200 -> 20",
+                    "synth_scenes": f"48 -> {PIPE_SCENES} (one batch of 4)",
+                    "weights": "random (torch.manual_seed(0)) in place of "
+                               "the trained checkpoint"},
+        "B": pc.batch_size, "NA": pc.max_agents, "FT": FTp,
+        "sol_future_len": SFL, "num_samples": pc.num_samples,
+        "num_iters": it, "stats": stats, "batches": timings["batches"],
+        "stage_calls": calls,
+        "stage_seconds": secs,
+        "sample_seconds_per_candidate":
+            secs.get("sample", 0.0) / max(calls.get("sample", 1), 1),
+        "final_loss": losses,
+        "wall_seconds": wall,
+        "candidate_scenes_per_hour": batch_scenes * 3600.0 / batch_secs,
+        "launches": {k: launches[k] for k in ("map_crop",
+                                              "footprint_coll_point")},
+    })
+    log(f"c. full-width pipeline: {stats}, batches {timings['batches']}, "
+        f"stages {secs}, launches {line['launches']} as worked out, JSONs "
+        f"read back ({n_json})")
+    return line
+
+
 def main():
     # one card: the first of those visible, numbered as nvidia-smi numbers it
     os.environ.setdefault("CUDA_DEVICE_ORDER", "PCI_BUS_ID")
@@ -929,14 +1304,8 @@ def main():
     k1_ms = cuda_ms(lambda: crop_kernel.map_crop(*k1_args), 200)
     k1_plain_ms = cuda_ms(lambda: crop_kernel.map_crop_plain(*k1_args),
                           20)
-    xys = queries.rotate_grid(lo[None, :, None], wo[None, None, :],
-                              pos[:, :2], pos[:, 2:4])
     n_pix = B * NA * MAP_PX * MAP_PX
-    k1_bytes = (unique_raster_bytes(torch, queries, store.packed, store.dx,
-                                    xys, mapix)
-                + pos.numel() * 4 + mapix.numel() * 8 + store.dx.numel() * 4
-                + (lo.numel() + wo.numel()) * 4 + n_pix * 4 * 4)
-    k1_bound, k1_by = bound_ms(rates, k1_bytes, n_pix * CROP_FLOPS_PER_PIXEL)
+    k1_bound, k1_by = bound_ms(rates, *crop_work(torch, queries, k1_args))
     kernels["map_crop"] = dict(
         name="map_crop", route="cuda", source="strive_tpu_torch/csrc/crop.cu",
         replaces="strive_tpu/maps/crop_kernel.py:201", max_abs_err=k1_err,
@@ -950,7 +1319,7 @@ def main():
         store, scene, smean, sstd,
         torch.as_tensor(norm.att_mean, device=dev),
         torch.as_tensor(norm.att_std, device=dev))
-    cars, lw, cmap, lin_l, lin_w = k2_args[2:7]
+    lin_l, lin_w = k2_args[5:7]
     wild = torch.from_numpy(np.concatenate(
         [rng.uniform(-50, 560, (48, 2)), rng.uniform(100, 400, (48, 2))],
         1).astype(np.float32)).to(dev)
@@ -967,15 +1336,8 @@ def main():
                     200)
     k2_plain_ms = cuda_ms(
         lambda: crop_kernel.footprint_coll_point_plain(*k2_args), 20)
-    P = cars.shape[0]
-    samples = queries.gen_car_coords(cars[:, :2], cars[:, 2:4], 39, 16,
-                                     ls=lw[:, 0], ws=lw[:, 1])
-    k2_bytes = (unique_raster_bytes(torch, queries, store.packed, store.dx,
-                                    samples, cmap)
-                + P * (16 + 8 + 8) + store.dx.numel() * 4 + (39 + 16) * 4
-                + P * (8 + 1 + 4))
-    k2_bound, k2_by = bound_ms(rates, k2_bytes,
-                               P * 39 * 16 * FOOTPRINT_FLOPS_PER_SAMPLE)
+    k2_bound, k2_by = bound_ms(rates, *footprint_work(torch, queries,
+                                                      k2_args))
     kernels["footprint_coll_point"] = dict(
         name="footprint_coll_point", route="cuda",
         source="strive_tpu_torch/csrc/crop.cu",
@@ -1053,6 +1415,11 @@ def main():
     for k, entry in kernels.items():
         entry["closed_loop_launches"] = cl_launches[k]
 
+    # --- 9. the scenario-generation pipeline ----------------------------------
+    pipeline = pipeline_phase(torch, np, rates, card, counters, kernels)
+    pipeline["d_solution"] = solution_stage(torch, tm, model, scene, store,
+                                            norm, counters)
+
     # --- 7. K3, K4a, K4b and the gather-probe path -------------------------
     k1_gelem_s = n_pix / (k1_ms * 1e-3) / 1e9
     window_entries, probes = window_phase(torch, rates, card, k1_gelem_s)
@@ -1064,6 +1431,7 @@ def main():
     print(json.dumps(probes))
     print(json.dumps(bisect))
     print(json.dumps({"closed_loop": {**closed_loop, "card": card}}))
+    print(json.dumps(pipeline))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"main_path": "embed + open-loop adv optimization",
                       "B": B, "NA": NA, "FT": FT, "crop_px": MAP_PX,

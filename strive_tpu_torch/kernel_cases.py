@@ -1,16 +1,20 @@
-"""The inputs that hold K2 ``footprint_coll_point``, K4b ``window_take`` and
-K5c ``window_sums`` to their plain versions, shared by ``chip_smoke.py``,
-``tools/kernel_variants.py`` and the tests: the main path's K2 inputs, the
-three kernels' edge cases, and the check of K2's contract
-(:func:`coll_point_error`)."""
+"""The inputs that hold K1 ``map_crop``, K2 ``footprint_coll_point``, K4b
+``window_take`` and K5c ``window_sums`` to their plain versions, shared by
+``chip_smoke.py``, ``tools/kernel_variants.py`` and the tests: the main
+path's K2 inputs, K1 and K2 at the shapes the scenario-generation pipeline
+gives them (prior sampling, the solution loss), the three kernels' edge
+cases, and the check of K2's contract (:func:`coll_point_error`)."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from .geometry import interp_traj
 from .maps import crop_kernel, queries
+from .maps.store import DEFAULT_BOUNDS
 
 
 def main_path_coll_point_args(store, scene, state_mean, state_std, att_mean,
@@ -38,25 +42,64 @@ def main_path_k2(device):
     """``(store, args)``: K2's inputs at the main path's shape in
     ``chip_smoke.py``, B=4 scenes x NA=8 agents x 36 interpolated poses
     (1152 cars) on 2 synthetic maps of 2048 px x 4 channels at 4 px/m."""
+    store, scene, stats = _full_width_scene(device, 12, NA=8)
+    return store, main_path_coll_point_args(store, scene, *stats)
+
+
+def _full_width_scene(device, FT, NA=16, B=4):
+    """The full-width store (2 maps x 2048 px x 4 channels at 4 px/m) and B
+    synthetic scenes of NA agents on it, with the pose and size
+    normalizers' statistics as tensors."""
     from .data.synthetic import synthetic_scene_list
     from .maps.store import synthetic_map_store
     from .normalize import att_normalizer_for, state_normalizer_for
     from .scene import pad_scene_arrays
 
-    B, NA, cats = 4, 8, ("car", "truck")
+    cats = ("car", "truck")
     store = synthetic_map_store(num_maps=2, size_px=2048, channels=4,
                                 pix_per_m=4.0, device=device)
     scene = pad_scene_arrays(synthetic_scene_list(
-        num_scenes=B, num_maps=2, map_size_px=2048, PT=4, FT=12,
+        num_scenes=B, num_maps=2, map_size_px=2048, PT=4, FT=FT,
         min_agents=NA, max_agents=NA), NA, 2, device=device)
     sn, an = state_normalizer_for(cats), att_normalizer_for(cats)
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
-    return store, main_path_coll_point_args(
-        store, scene, t(sn.mean_np[:4]), t(sn.std_np[:4]), t(an.mean_np),
-        t(an.std_np))
+    return store, scene, (t(sn.mean_np[:4]), t(sn.std_np[:4]),
+                          t(an.mean_np), t(an.std_np))
+
+
+def sampling_crop_args(device, NS=20, NA=16, L=256, seed=0):
+    """K1's arguments at prior sampling's shape: one rollout step of
+    ``sample_batched`` crops 1 scene x NS samples x NA agents (320 poses at
+    the production config) in one launch, 256 px with the default bounds,
+    on the full-width store. The poses are a synthetic scene's futures,
+    one step a sample, moved by up to a few meters."""
+    store, scene, (smean, sstd, _, _) = _full_width_scene(device, 12, NA, 1)
+    rng = np.random.default_rng(seed)
+    fut = scene.future_gt[0, :, :, :4] * sstd + smean          # (NA, FT, 4)
+    steps = torch.as_tensor(np.arange(NS) % fut.shape[1], device=device)
+    pos = fut[:, steps].transpose(0, 1).reshape(NS * NA, 4).clone()
+    pos[:, :2] += torch.as_tensor(rng.normal(0, 2.0, (NS * NA, 2)),
+                                  dtype=torch.float32, device=device)
+    mapix = scene.map_idx.repeat_interleave(NS * NA)
+    lo, wo = queries.crop_offsets(DEFAULT_BOUNDS, L, L, device)
+    return (store.packed, store.dx, pos.contiguous(), mapix.contiguous(), lo,
+            wo, store.C, "nhwc")
+
+
+def solution_k2(device, B=4, sol_future_len=16):
+    """``(store, args)``: K2's inputs at the solution loss's shape
+    (``avoid_coll_loss`` with ``single_veh_idx=0``): one car a scene, B
+    scenes, its ``sol_future_len`` poses interpolated x3 (192 cars at the
+    production config), on the full-width store."""
+    store, scene, stats = _full_width_scene(device, sol_future_len, 16, B)
+    ego = dataclasses.replace(scene, **{
+        k: getattr(scene, k)[:, :1]
+        for k in ("past", "past_vis", "sem", "lw", "mask", "future",
+                  "future_vis", "past_gt", "future_gt")})
+    return store, main_path_coll_point_args(store, ego, *stats)
 
 
 def coll_point_cases(size_px, pix_per_m=4.0, seed=0):

@@ -1,9 +1,10 @@
 """Adversarial latent-optimization losses.
 
 Port of ``strive_tpu/losses/adv.py`` (reference ``losses/adv_gen_nusc.py``
-TgtMatchingLoss :14-51, AdvGenLoss :53-262, check_behind :646-673): the
-per-scene softmin over the flat node dimension is a masked softmax over
-the (NA, T) axes of each scene. All trajectories UNNORMALIZED.
+TgtMatchingLoss :14-51, AdvGenLoss :53-262, AvoidCollLoss :264-341,
+check_behind :646-673): the per-scene softmin over the flat node dimension
+is a masked softmax over the (NA, T) axes of each scene. All trajectories
+UNNORMALIZED.
 """
 
 from __future__ import annotations
@@ -180,6 +181,63 @@ def adv_gen_loss(future_pred, tgt_traj, z, prior_out, *, lw, mask, mapixes,
         # the reference SUMS this term over agents (adv_gen_nusc.py:222)
         init_loss = torch.sum(sq * coeff * nonego.to(sq.dtype))
         loss = loss + init_loss
+        out["init_loss"] = init_loss
+
+    out["loss"] = loss
+    return out
+
+
+def avoid_coll_loss(future_pred, z, prior_out, *, lw, mask, mapixes, packed,
+                    dx, init_z, weights, veh_coll_buffer=0.0,
+                    single_veh_idx=None, z_mask=None):
+    """Collision-avoidance objective (reference ``adv_gen_nusc.py:264-341``).
+
+    :param future_pred: (B, NA, T, 4) UNNORMALIZED
+    :param z, prior_out, init_z: (B, NA, D); ``z_mask`` (B, NA) selects which
+        agents' latents the prior/init terms apply to (the reference passes
+        only the optimized agents' z — e.g. the planner node in sol optim).
+    :param packed: (M, H, W) bit-packed raster, bit 0 the drivable layer
+    :param single_veh_idx: restrict collision terms to pairs involving this
+        agent index, and the environment term to this agent alone (0 = the
+        planner node, used by solution optimization).
+    """
+    if z_mask is None:
+        z_mask = mask
+    zw = z_mask.to(torch.float32)
+    out = {}
+    loss = 0.0
+    fut_interp = interp_traj(future_pred, scale_factor=3)
+
+    if weights.get("coll_veh", 0.0) > 0.0:
+        pens, coll = veh_coll_penalties(fut_interp, lw, mask,
+                                        buffer_dist=veh_coll_buffer,
+                                        single_veh_idx=single_veh_idx)
+        veh_loss = masked_mean(pens, coll)
+        loss = loss + weights["coll_veh"] * veh_loss
+        out["coll_veh_loss"] = veh_loss
+
+    if weights.get("coll_env", 0.0) > 0.0:
+        if single_veh_idx is not None:
+            sel = slice(single_veh_idx, single_veh_idx + 1)
+            traj, env_mask, env_lw = fut_interp[:, sel], mask[:, sel], lw[:, sel]
+        else:
+            traj, env_mask, env_lw = fut_interp, mask, lw
+        env_pens, env_valid = env_coll_penalties(traj, env_lw, env_mask,
+                                                 mapixes, packed, dx)
+        env_loss = masked_mean(env_pens, env_valid)
+        loss = loss + weights["coll_env"] * env_loss
+        out["coll_env_loss"] = env_loss
+
+    if weights.get("motion_prior", 0.0) > 0.0:
+        nll = motion_prior_nll(z, prior_out)
+        mp = _weighted_mean(nll, zw)
+        loss = loss + weights["motion_prior"] * mp
+        out["motion_prior_loss"] = mp
+
+    if weights.get("init_z", 0.0) > 0.0:
+        sq = torch.sum((init_z - z) ** 2, dim=-1)
+        init_loss = _weighted_mean(sq, zw)
+        loss = loss + weights["init_z"] * init_loss
         out["init_loss"] = init_loss
 
     out["loss"] = loss

@@ -10,12 +10,25 @@ block-alignment padding: the CUDA kernels gather bytes directly.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
+
 import numpy as np
 import torch
 
 # default observation bounds [low_l, low_w, high_l, high_w] in meters
 # (reference utils/config.py:56-57)
 DEFAULT_BOUNDS = (-17.0, -38.5, 60.0, 38.5)
+
+ROAD_LAYERS = ("drivable_area", "road_segment", "lane")
+DEFAULT_LAYERS = ("drivable_area", "carpark_area", "road_divider", "lane_divider")
+
+
+def num_channels(layers=DEFAULT_LAYERS):
+    """Crop channels of a layer list: the road layers share channel 0, every
+    other layer has its own (reference ``map_env.py:63-77``)."""
+    road = [l for l in layers if l in ROAD_LAYERS]
+    other = [l for l in layers if l not in ROAD_LAYERS]
+    return (1 if road else 0) + len(other)
 
 
 @dataclasses.dataclass
@@ -30,6 +43,7 @@ class MapStore:
     raster: torch.Tensor  # (M, C, H, W) uint8
     dx: torch.Tensor      # (M, 2) float32
     packed: torch.Tensor  # (M, H, W) uint8 bitfield
+    map_names: Tuple[str, ...] = ()  # by map index
 
     @property
     def M(self):
@@ -44,8 +58,9 @@ class MapStore:
         return self.raster[:, 0]
 
     @classmethod
-    def from_raster(cls, raster, dx):
-        return cls(raster=raster, dx=dx, packed=pack_raster(raster))
+    def from_raster(cls, raster, dx, map_names=()):
+        return cls(raster=raster, dx=dx, packed=pack_raster(raster),
+                   map_names=tuple(map_names))
 
 
 def pack_raster(raster):
@@ -86,4 +101,16 @@ def synthetic_map_store(num_maps=2, size_px=512, channels=3, pix_per_m=4.0,
             rasters[m, c] = stripes & driv
     dx = np.full((num_maps, 2), 1.0 / pix_per_m, np.float32)
     return MapStore.from_raster(torch.from_numpy(rasters).to(device),
-                                torch.from_numpy(dx).to(device))
+                                torch.from_numpy(dx).to(device),
+                                tuple(f"synthetic-{i}" for i in range(num_maps)))
+
+
+def upsample_store(store: MapStore, factor: int) -> MapStore:
+    """Nearest-neighbour upsample (``strive_tpu/maps/store.py:157-173``):
+    the same content in ``factor`` x finer pixels; ``dx`` shrinks by
+    ``factor`` so world-coordinate queries stay correct."""
+    if factor <= 1:
+        return store
+    r = store.raster.repeat_interleave(factor, dim=-2).repeat_interleave(
+        factor, dim=-1)
+    return MapStore.from_raster(r, store.dx / float(factor), store.map_names)

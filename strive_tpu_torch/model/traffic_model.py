@@ -6,10 +6,15 @@ autoregressive decoder is a Python loop over future steps; each step crops
 the map at the detached new pose (reference ``.detach()`` at :694), so the
 map branch carries no gradient to the latents.
 
+A sample axis (``decode_embedding`` of (B, NS, NA, D) latents,
+``sample_batched``) is folded into the batch axis: the scene's fields and
+the cached features are repeated NS times, decoded as B*NS scenes, and
+unfolded. This is exact, because the GNN only mixes agents of one scene,
+and every rollout step crops all B*NS*NA poses in one launch.
+
 Options of the JAX model that this port does not run yet raise
 ``NotImplementedError``: the 'gru' trajectory encoder, a bf16
-``compute_dtype``, ``map_refresh_every > 1``, ``output_bicycle=False``,
-``sample_batched`` and a sample axis in ``decode_embedding``.
+``compute_dtype``, ``map_refresh_every > 1`` and ``output_bicycle=False``.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from torch import nn
 
 from ..dynamics import BikeParams, NUSC_BIKE_PARAMS, bike_step
 from ..geometry import transform2frame
+from ..losses.common import log_normal
 from ..maps.queries import get_map_crop
 from ..maps.store import DEFAULT_BOUNDS
 from ..scene import SceneBatch
@@ -290,13 +296,53 @@ class TrafficModel(nn.Module):
                          ext_future=None, nfuture=None):
         """Decode latents using cached embed() features (reference :405-414).
 
-        :param z: (B, NA, D)
+        :param z: (B, NA, D), or (B, NS, NA, D) with a sample axis (folded
+            into the batch axis, module doc)
+        :return: {'future_pred': (B, [NS,] NA, FT, 4)}
         """
-        if z.dim() != 3:
-            raise NotImplementedError("a sample axis in z is not ported")
+        if z.dim() == 4:
+            B, NS, NA, D = z.shape
+            rep = torch.arange(B, device=z.device).repeat_interleave(NS)
+            fp = self.decoder(
+                scene.take(rep), embed_out["map_feat"][rep],
+                embed_out["past_feat"][rep], z.reshape(B * NS, NA, D),
+                map_store,
+                ext_future=None if ext_future is None else ext_future[rep],
+                nfuture=nfuture)
+            return {"future_pred": fp.reshape(B, NS, *fp.shape[1:])}
         return {"future_pred": self.decoder(
             scene, embed_out["map_feat"], embed_out["past_feat"], z,
             map_store, ext_future=ext_future, nfuture=nfuture)}
 
-    def sample_batched(self, *args, **kwargs):
-        raise NotImplementedError("sample_batched is not ported")
+    def sample_batched(self, scene: SceneBatch, map_store, num_samples,
+                       include_mean=False, nfuture=None, eps=None,
+                       generator=None):
+        """Prior sampling, NS samples a scene (reference :319-370).
+
+        :param eps: optional (B, NS, NA, D) standard-normal noise; drawn
+            from ``generator`` when None
+        :param include_mean: the last sample is the prior mean
+        :return: dict with prior_out, z_samp (B, NS, NA, D), z_logprob and
+            z_mdist (B, NS, NA), future_pred (B, NS, NA, FT, 4)
+        """
+        embed_out = self.embed(scene, map_store)
+        prior_mu, prior_var = embed_out["prior_out"]
+        B, NA, D = prior_mu.shape
+        if eps is None:
+            eps = torch.randn((B, num_samples, NA, D), generator=generator,
+                              device=prior_mu.device, dtype=prior_mu.dtype)
+        z = prior_mu[:, None] + eps * torch.sqrt(prior_var[:, None])
+        if include_mean:
+            z = torch.cat([z[:, :-1], prior_mu[:, None]], dim=1)
+        dec = self.decode_embedding(z, embed_out, scene, map_store,
+                                    nfuture=nfuture)
+        z_logprob = log_normal(z, prior_mu[:, None], prior_var[:, None])
+        z_mdist = torch.linalg.vector_norm(
+            (z - prior_mu[:, None]) / torch.sqrt(prior_var[:, None]), dim=-1)
+        return {
+            "prior_out": (prior_mu, prior_var),
+            "z_samp": z,
+            "z_logprob": z_logprob,
+            "z_mdist": z_mdist,
+            "future_pred": dec["future_pred"],
+        }

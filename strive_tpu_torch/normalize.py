@@ -82,6 +82,22 @@ NUSC_NORM_STATS = {
 }
 
 
+# raw annotation category -> the 5-way network label (reference
+# nuscenes_dataset.py:159-171)
+REDUCED_CAT = {
+    "car": "car", "truck": "truck", "bus": "truck",
+    "motorcycle": "motorcycle", "trailer": "truck", "cyclist": "cyclist",
+    "pedestrian": "pedestrian", "emergency": "car", "construction": "truck",
+}
+
+
+def effective_categories(agent_types, reduce_cats=False) -> Tuple[str, ...]:
+    """The sorted category set the MODEL sees (after optional reduction)."""
+    if reduce_cats:
+        return tuple(sorted({REDUCED_CAT[c] for c in agent_types}))
+    return tuple(sorted(agent_types))
+
+
 def state_normalizer_for(categories: Tuple[str, ...]) -> MeanStdNormalizer:
     """6-dim (x,y,hx,hy,s,hdot) state normalizer for a category set."""
     stats = NUSC_NORM_STATS[tuple(sorted(categories))]

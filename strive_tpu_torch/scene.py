@@ -55,6 +55,17 @@ class SceneBatch:
     def NC(self):
         return self.sem.shape[-1]
 
+    def num_agents(self):
+        """(B,) number of real agents per scene."""
+        return torch.sum(self.mask.to(torch.int64), dim=1)
+
+    def take(self, ids):
+        """The scenes ``ids`` (a list, array or tensor of indices, repeats
+        allowed), on every field."""
+        ids = torch.as_tensor(ids, dtype=torch.int64, device=self.past.device)
+        return SceneBatch(**{k: None if v is None else v[ids]
+                             for k, v in vars(self).items()})
+
 
 IDENTITY_STATE = np.array([0.0, 0.0, 1.0, 0.0, 0.0, 0.0], dtype=np.float32)
 

@@ -1,0 +1,516 @@
+"""Adversarial scenario generation — the flagship pipeline, on PyTorch.
+
+    python -m strive_tpu_torch.scripts.adv_scenario_gen -c configs/adv_gen_synthetic.cfg
+    python -m strive_tpu_torch.scripts.adv_scenario_gen -c configs/adv_gen_synthetic.cfg --device cpu
+
+Port of ``scripts/adv_scenario_gen.py`` with the same flags, defaults,
+stages, log lines, stats and output folders: sample prior futures ->
+feasibility filter -> batch feasible scenes -> init optimization (75
+iterations on the recorded scene, then for the rule planner 100 on its
+rollout) -> adversarial latent optimization (open or closed loop) ->
+success check -> solution optimization -> scenario JSONs in the
+{adv_sol_success, sol_failed, adv_failed} folders.
+
+- ``--device`` defaults to ``cuda`` and raises without a card; the CPU
+  runs only when asked for (``--device cpu``).
+- ``--planner_backend host`` is the numpy rule planner through the host
+  bridge, ``tpu`` the device planner (``DeviceRulePlanner``; the name
+  stays so the configs parse). ``--closed_loop_mode`` is accepted; both
+  values run the one eager closed loop of ``optim/adv.py``.
+- The weights are random, from ``init_params``; the prior noise of each
+  candidate comes from ``prior_noise``, drawn from one CPU generator
+  seeded 0. Both are drawn on the CPU, so the card and the CPU see the
+  same numbers.
+- Not ported yet, and raising ``NotImplementedError``: ``--ckpt`` (the
+  checkpoint port, P9), ``--viz`` and a non-synthetic ``--data_version``
+  (P10), ``--mesh_devices > 1`` (P11), ``--bf16`` (ROADMAP queue 1b).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..data.loading import load_environment
+from ..data.scenario_json import prepare_output_dict, save_scenario
+from ..losses.metrics import check_single_veh_coll
+from ..normalize import REDUCED_CAT, effective_categories
+from ..optim.adv import compute_adv_gen_success, run_adv_gen_optim
+from ..optim.feasibility import (determine_feasibility,
+                                 restrict_attackers_to_category)
+from ..optim.init_optim import run_init_optim
+from ..optim.sol import compute_sol_success, run_find_solution_optim
+from ..planners import PLANNER_CONFIGS, PlannerConfig, RulePlanner
+from ..planners.device_planner import DeviceRulePlanner
+from ..planners.host_bridge import make_planner_host_fn, reset_planner
+from ..utils.config import add_base_args, get_parser
+from ..utils.logger import Logger, mkdir
+from .common import build_model
+
+INIT_FIT_ITERS = 75      # scripts/adv_scenario_gen.py:323
+PLANNER_REFIT_ITERS = 100  # scripts/adv_scenario_gen.py:370
+
+
+def parse_cfg(argv=None):
+    parser = get_parser("Adversarial scenario generation (PyTorch)")
+    parser = add_base_args(parser)
+    parser.add_argument("--split", type=str, default="val",
+                        choices=["test", "val", "train"])
+    parser.add_argument("--val_size", type=int, default=400)
+    parser.add_argument("--seq_interval", type=int, default=10)
+    parser.add_argument("--shuffle", action="store_true", default=False)
+    parser.add_argument("--random_val", action="store_true", default=True)
+    parser.add_argument("--adv_attack_with", type=str, default=None)
+    parser.add_argument("--planner", type=str, default="ego",
+                        choices=["ego", "hardcode"])
+    parser.add_argument("--planner_cfg", type=str, default="default")
+    parser.add_argument("--planner_backend", type=str, default="host",
+                        choices=["host", "tpu"],
+                        help="'host': the numpy rule planner through the "
+                             "host bridge; 'tpu': the rule planner as "
+                             "batched torch ops on --device")
+    parser.add_argument("--closed_loop_mode", type=str, default="fused",
+                        choices=["chunked", "fused"],
+                        help="accepted for the configs; both values run "
+                             "the one eager closed loop")
+    parser.add_argument("--planner_refresh_every", type=int, default=1,
+                        help="re-roll the closed-loop planner every k-th "
+                             "Adam iteration (1 = reference-exact)")
+    parser.add_argument("--feasibility_thresh", type=float, default=10.0)
+    parser.add_argument("--feasibility_time", type=int, default=4)
+    parser.add_argument("--feasibility_vel", type=float, default=0.5)
+    parser.add_argument("--feasibility_infront_min", type=float, default=0.0)
+    parser.add_argument("--feasibility_check_sep", action="store_true",
+                        default=False)
+    parser.add_argument("--init_loss_match_ext", type=float, default=10.0)
+    parser.add_argument("--init_loss_motion_prior_ext", type=float, default=0.1)
+    parser.add_argument("--loss_coll_veh", type=float, default=20.0)
+    parser.add_argument("--loss_coll_veh_plan", type=float, default=20.0)
+    parser.add_argument("--loss_coll_env", type=float, default=20.0)
+    parser.add_argument("--loss_init_z", type=float, default=0.5)
+    parser.add_argument("--loss_init_z_atk", type=float, default=0.05)
+    parser.add_argument("--loss_motion_prior", type=float, default=1.0)
+    parser.add_argument("--loss_motion_prior_atk", type=float, default=0.005)
+    parser.add_argument("--loss_motion_prior_ext", type=float, default=0.0001)
+    parser.add_argument("--loss_match_ext", type=float, default=10.0)
+    parser.add_argument("--loss_adv_crash", type=float, default=2.0)
+    parser.add_argument("--sol_future_len", type=int, default=16)
+    parser.add_argument("--sol_loss_coll_veh", type=float, default=10.0)
+    parser.add_argument("--sol_loss_coll_env", type=float, default=10.0)
+    parser.add_argument("--sol_loss_motion_prior", type=float, default=0.005)
+    parser.add_argument("--sol_loss_init_z", type=float, default=0.0)
+    parser.add_argument("--sol_loss_motion_prior_ext", type=float,
+                        default=0.001)
+    parser.add_argument("--sol_loss_match_ext", type=float, default=10.0)
+    parser.add_argument("--num_iters", type=int, default=300)
+    parser.add_argument("--lr", type=float, default=0.05)
+    parser.add_argument("--num_samples", type=int, default=20)
+    parser.add_argument("--viz", action="store_true", default=False)
+    parser.add_argument("--save", action="store_true", default=False)
+    parser.add_argument("--synth_scenes", type=int, default=24)
+    parser.add_argument("--max_scenes", type=int, default=None,
+                        help="cap on candidate scenes (for smoke runs)")
+    parser.add_argument("--mesh_devices", type=int, default=1,
+                        help="shard scene batches over this many devices "
+                             "(not ported yet: P11)")
+    parser.add_argument("--no_ref_compat", dest="ref_compat",
+                        action="store_false", default=True,
+                        help="fix the reference TgtMatchingLoss prior-weight "
+                             "bug instead of replicating it (PARITY.md)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="'cuda' (default; raises without a card) or "
+                             "'cpu'")
+    return parser.parse(argv)
+
+
+def check_ported(cfg):
+    """Raise ``NotImplementedError`` on an option the port has not got yet,
+    naming the step of ROADMAP that ports it."""
+    missing = [
+        (cfg.ckpt is not None, "--ckpt: reading a trained checkpoint (orbax) "
+                               "is the checkpoint port's (P9)"),
+        (cfg.viz, "--viz: rendering (viz.py) is P10's"),
+        (cfg.mesh_devices > 1, "--mesh_devices > 1: multi-GPU is P11's"),
+        (cfg.bf16, "--bf16: bf16 compute is ROADMAP queue 1b's"),
+        (cfg.data_version != "synthetic",
+         f"--data_version {cfg.data_version}: the nuScenes ETL is P10's"),
+    ]
+    for hit, msg in missing:
+        if hit:
+            raise NotImplementedError(msg)
+
+
+def resolve_device(name):
+    """``--device`` as a torch device; 'cuda' without a card raises."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda, but torch.cuda.is_available() is "
+                           "false; pass --device cpu to run on the CPU")
+    return dev
+
+
+def init_params(model, cfg):
+    """Draw the model's initial weights, in place, from
+    ``torch.manual_seed(0)`` on the CPU (the model must be there). Random
+    weights stand in for a trained checkpoint (``--ckpt`` raises, P9)."""
+    torch.manual_seed(0)
+    for m in model.modules():
+        if m is not model and hasattr(m, "reset_parameters"):
+            m.reset_parameters()
+
+
+def prior_noise(generator, shape):
+    """One candidate's standard-normal prior noise (1, NS, NA, D), drawn on
+    the CPU from ``generator``."""
+    return torch.randn(shape, generator=generator)
+
+
+def _take_embed(emb, ids):
+    """The scenes ``ids`` of an ``embed()`` output."""
+    ids = torch.as_tensor(ids, dtype=torch.int64,
+                          device=emb["map_feat"].device)
+    return {k: (tuple(x[ids] for x in v) if isinstance(v, tuple) else v[ids])
+            for k, v in emb.items()}
+
+
+def _np(x):
+    return x.detach().cpu().numpy()
+
+
+def main(argv=None, timings=None):
+    """Run the pipeline; returns the stats dict.
+
+    :param timings: optional dict, filled with each stage's wall seconds
+        (``seconds``) and number of runs (``calls``): 'sample' (one a
+        candidate), 'init_fit', 'planner_refit', 'adversarial', 'solution'
+        and 'save' (one a batch each); the last loss of each optimization
+        (``final_loss``); and ``batches`` [(secs, scenes, adv
+        successes)]. Stages end in a device synchronize.
+    """
+    cfg = parse_cfg(argv)
+    check_ported(cfg)
+    device = resolve_device(cfg.device)
+    mkdir(cfg.out)
+    Logger.init(os.path.join(cfg.out, "adv_gen_log.txt"))
+    Logger.log("Args: " + str(vars(cfg)))
+    if timings is not None:
+        timings.update(seconds={}, calls={}, final_loss={}, batches=[])
+
+    def record_loss(name, losses):
+        if timings is not None and len(losses):
+            timings["final_loss"][name] = float(losses[-1])
+
+    @contextlib.contextmanager
+    def stage(name):
+        t0 = time.perf_counter()
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        if timings is not None:
+            sec, calls = timings["seconds"], timings["calls"]
+            sec[name] = sec.get(name, 0.0) + time.perf_counter() - t0
+            calls[name] = calls.get(name, 0) + 1
+
+    need_lanes = cfg.planner == "hardcode"
+    ds, store, lane_graphs, state_norm, att_norm = load_environment(
+        cfg, cfg.split, load_lanegraph=need_lanes, device=device)
+    eff_cats = effective_categories(cfg.agent_types, cfg.reduce_cats)
+    nc = len(eff_cats)
+    if cfg.adv_attack_with is not None and \
+            cfg.adv_attack_with not in eff_cats and \
+            not (cfg.reduce_cats and
+                 REDUCED_CAT.get(cfg.adv_attack_with) in eff_cats):
+        # fail fast on a typo'd category: a silent all-False restriction
+        # would just produce zero scenarios with no explanation
+        raise SystemExit(
+            f"--adv_attack_with {cfg.adv_attack_with!r} is not in the "
+            f"effective category set {eff_cats} (nor reduces into it)")
+    model = build_model(cfg, state_norm, att_norm, nc, "cpu")
+    if model.map_channels != store.C:
+        raise ValueError(f"--map_layers give {model.map_channels} crop "
+                         f"channels, the store has {store.C}")
+    init_params(model, cfg)
+    model.to(device)
+    dt = 0.5
+
+    loss_weights = {
+        "coll_veh": cfg.loss_coll_veh, "coll_veh_plan": cfg.loss_coll_veh_plan,
+        "coll_env": cfg.loss_coll_env, "init_z": cfg.loss_init_z,
+        "init_z_atk": cfg.loss_init_z_atk,
+        "motion_prior": cfg.loss_motion_prior,
+        "motion_prior_atk": cfg.loss_motion_prior_atk,
+        "motion_prior_ext": cfg.loss_motion_prior_ext,
+        "match_ext": cfg.loss_match_ext, "adv_crash": cfg.loss_adv_crash,
+    }
+    init_weights = {"match_ext": cfg.init_loss_match_ext,
+                    "motion_prior_ext": cfg.init_loss_motion_prior_ext}
+    sol_weights = {"coll_veh": cfg.sol_loss_coll_veh,
+                   "coll_env": cfg.sol_loss_coll_env,
+                   "motion_prior": cfg.sol_loss_motion_prior,
+                   "init_z": cfg.sol_loss_init_z,
+                   "motion_prior_ext": cfg.sol_loss_motion_prior_ext,
+                   "match_ext": cfg.sol_loss_match_ext}
+
+    scen_dir = os.path.join(cfg.out, "scenario_results")
+    if cfg.save:
+        mkdir(scen_dir)
+
+    planner = None
+    if cfg.planner == "hardcode":
+        pc = PlannerConfig(**PLANNER_CONFIGS[cfg.planner_cfg])
+        if cfg.planner_backend == "tpu":
+            planner = DeviceRulePlanner(lane_graphs, store.map_names, pc,
+                                        device=device)
+        else:
+            planner = RulePlanner(lane_graphs, store.map_names, pc)
+
+    stats = {"candidates": 0, "feasible": 0, "adv_success": 0,
+             "sol_success": 0, "planner_precollide": 0}
+    pending = []  # feasible scene indices awaiting a batch
+    n_total = len(ds) if cfg.max_scenes is None else min(len(ds),
+                                                         cfg.max_scenes)
+    order = list(range(n_total))
+    t_start = time.time()
+    batch_times = []  # (secs, n_scenes, n_adv_success) per optimized batch
+    noise_gen = torch.Generator().manual_seed(0)
+    noise_shape = (1, cfg.num_samples, ds.na_max, cfg.latent_size)
+
+    for pos, di in enumerate(order):
+        is_last = pos == len(order) - 1
+        scene = ds.get_batch([di])
+        stats["candidates"] += 1
+        with stage("sample"), torch.no_grad():
+            samp = model.sample_batched(
+                scene, store, cfg.num_samples, include_mean=True,
+                eps=prior_noise(noise_gen, noise_shape).to(device))
+
+            # ego velocity screens (reference :176-195)
+            if cfg.planner == "ego":
+                ego_gt = state_norm.unnormalize(_np(scene.future_gt[0, 0]))
+                vmax = np.linalg.norm(np.diff(ego_gt[:, :2], axis=0),
+                                      axis=-1).max()
+            else:
+                ego_s = state_norm.unnormalize(_np(samp["future_pred"][0, :, 0]))
+                vmax = np.linalg.norm(np.diff(ego_s[:, :, :2], axis=1),
+                                      axis=-1).max()
+            feas = None
+            if vmax >= cfg.feasibility_vel:
+                feas, _, _ = determine_feasibility(
+                    samp["future_pred"][0], scene.mask[0], state_norm,
+                    cfg.feasibility_thresh, cfg.feasibility_time, 0.0,
+                    feasibility_infront_min=cfg.feasibility_infront_min,
+                    check_non_drivable_separation=cfg.feasibility_check_sep,
+                    drivable=store.drivable(), dx=store.dx,
+                    map_idx=scene.map_idx[0],
+                )
+                if cfg.adv_attack_with is not None:
+                    # restrict candidate attackers to one category
+                    # (reference adv_scenario_gen.py:209-219)
+                    feas = restrict_attackers_to_category(
+                        feas, scene.sem[0], eff_cats, cfg.adv_attack_with,
+                        reduced=cfg.reduce_cats)
+                n_feas = int(feas.sum())
+        if feas is None:
+            Logger.log(f"scene {di}: ego below velocity threshold, skip")
+            if not (is_last and pending):
+                continue
+        elif int(scene.num_agents()[0]) <= 1 or n_feas == 0:
+            Logger.log(f"scene {di}: infeasible, skip")
+            if not (is_last and pending):
+                continue
+        else:
+            stats["feasible"] += 1
+            pending.append(di)
+            Logger.log(f"scene {di}: feasible "
+                       f"({n_feas} candidate attackers)")
+
+        if len(pending) < cfg.batch_size and not is_last:
+            continue
+        if not pending:
+            continue
+
+        batch_ids = pending
+        pending = []
+
+        def stage1_fit(sc):
+            """Embed + fit the recorded scene (reference :283-290)."""
+            with stage("init_fit"):
+                with torch.no_grad():
+                    emb = model.embed(sc, store)
+                prior = emb["prior_out"]
+                init_traj = sc.future_gt
+                z0, fit, losses = run_init_optim(
+                    model, emb["posterior_out"][0], init_traj, sc.future_vis,
+                    0.1, init_weights, sc, store, INIT_FIT_ITERS, emb, prior,
+                    ref_compat=cfg.ref_compat)
+                record_loss("init_fit", losses)
+            return emb, prior, z0, init_traj, fit
+
+        def make_pfn(sc):
+            """Reset the planner on the batch; its closed-loop function."""
+            init_state = state_norm.unnormalize(sc.past_gt[:, :, -1])
+            lw_un = att_norm.unnormalize(sc.lw)
+            if cfg.planner_backend == "tpu":
+                planner.reset(init_state, lw_un, sc.mask, sc.map_idx)
+                return planner.make_fn(state_norm, dt, cfg.future_len)
+            reset_planner(planner, init_state, lw_un, sc.mask, sc.map_idx)
+            return make_planner_host_fn(planner, sc.mask, state_norm, dt,
+                                        cfg.future_len)
+
+        def planner_refit(sc, emb, prior, z0, fit):
+            """Roll the planner on the fitted scene, make it the ego
+            target, and re-fit (reference :292-310)."""
+            with stage("planner_refit"):
+                pfn = make_pfn(sc)
+                init_traj = sc.future_gt.clone()
+                init_traj[:, 0, :, :4] = pfn(fit)
+                z0, fit, losses = run_init_optim(
+                    model, z0, init_traj, sc.future_vis, cfg.lr, init_weights,
+                    sc, store, PLANNER_REFIT_ITERS, emb, prior,
+                    ref_compat=cfg.ref_compat)
+                record_loss("planner_refit", losses)
+            return pfn, init_traj, z0, fit
+
+        scene = ds.get_batch(batch_ids)
+        B = scene.B
+        Logger.log(f"Optimizing batch of {len(batch_ids)} scenes {batch_ids}")
+        t0 = time.time()
+
+        emb, prior, z_init, init_traj, init_fit = stage1_fit(scene)
+
+        planner_fn = None
+        if cfg.planner == "hardcode":
+            planner_fn, init_traj, z_init, init_fit = planner_refit(
+                scene, emb, prior, z_init, init_fit)
+            # drop scenes where the planner already collides (reference :312-328)
+            lw_un = att_norm.unnormalize(_np(scene.lw))
+            mask_np = _np(scene.mask)
+            keep = []
+            for b in range(len(batch_ids)):
+                n = int(mask_np[b].sum())
+                fut = state_norm.unnormalize(_np(init_fit[b, :n]))
+                lw_b = lw_un[b, :n]
+                coll, _ = check_single_veh_coll(fut[0], lw_b[0], fut[1:],
+                                                lw_b[1:])
+                keep.append(coll.sum() == 0)
+            if not all(keep):
+                stats["planner_precollide"] += int(len(keep) - sum(keep))
+                Logger.log("Planner pre-collision: dropping "
+                           f"{len(keep) - sum(keep)}/{len(keep)} scenes")
+                if not any(keep):
+                    continue
+                batch_ids = [bi for bi, k in zip(batch_ids, keep) if k]
+                scene = ds.get_batch(batch_ids)
+                B = scene.B
+                emb, prior, z_init, init_traj, init_fit = stage1_fit(scene)
+                planner_fn, init_traj, z_init, init_fit = planner_refit(
+                    scene, emb, prior, z_init, init_fit)
+
+        # record the init scenario (ego = data / planner, reference :358-366)
+        init_future_pred = init_fit.clone()
+        init_future_pred[:, 0] = init_traj[:, 0, :, :4]
+
+        # adversarial optimization
+        with stage("adversarial"):
+            tgt_prior = (prior[0][:, 0], prior[1][:, 0])
+            z_adv, final_traj, min_agt, min_t, losses, internal_pred = \
+                run_adv_gen_optim(
+                    model, z_init, cfg.lr, loss_weights, scene, store,
+                    cfg.num_iters, emb, cfg.planner, tgt_prior, prior,
+                    cfg.feasibility_time, cfg.feasibility_infront_min,
+                    planner_rollout_fn=planner_fn, ref_compat=cfg.ref_compat,
+                    planner_refresh_every=cfg.planner_refresh_every)
+            record_loss("adversarial", losses)
+            min_agt, min_t = _np(min_agt), _np(min_t)
+            adv_ok = [compute_adv_gen_success(
+                final_traj[b], state_norm, att_norm, scene.lw[b],
+                scene.mask[b], int(min_agt[b]))[0] for b in range(B)]
+        stats["adv_success"] += sum(adv_ok)
+        Logger.log(f"adv successes: {adv_ok}")
+
+        # solution optimization on successful scenes
+        sol_ok = [False] * B
+        sol_traj_store = {}
+        sol_z_store = {}
+        sol_ids = [b for b in range(B) if adv_ok[b]]
+        if sol_ids:
+            with stage("solution"):
+                sub = scene.take(sol_ids)
+                sub_emb = _take_embed(emb, sol_ids)
+                sub_prior = sub_emb["prior_out"]
+                sel = torch.as_tensor(sol_ids, device=device)
+                z_sol, sol_traj, losses = run_find_solution_optim(
+                    model, z_adv[sel], final_traj[sel], cfg.sol_future_len,
+                    cfg.lr, sol_weights, sub, store, cfg.num_iters, sub_emb,
+                    sub_prior, sub_prior, ref_compat=cfg.ref_compat)
+                record_loss("solution", losses)
+                for k, b in enumerate(sol_ids):
+                    sol_ok[b] = compute_sol_success(
+                        sol_traj[k], sub.take([k]), store, state_norm,
+                        att_norm)
+                    sol_traj_store[b] = _np(sol_traj[k])
+                    sol_z_store[b] = _np(z_sol[k])
+            stats["sol_success"] += sum(sol_ok)
+        Logger.log(f"sol successes: {sol_ok}")
+        batch_secs = time.time() - t0
+        batch_times.append((batch_secs, B, int(sum(adv_ok))))
+        Logger.log("Optimized batch in %.1f sec" % batch_secs)
+
+        # save per scene
+        with stage("save"):
+            mask_np = _np(scene.mask)
+            for b in range(B):
+                if not cfg.save:
+                    break
+                n = int(mask_np[b].sum())
+                result_dir = ("adv_failed" if not adv_ok[b]
+                              else ("adv_sol_success" if sol_ok[b]
+                                    else "sol_failed"))
+                sc = {"past_gt": _np(scene.past_gt[b, :n]),
+                      "lw": _np(scene.lw[b, :n]),
+                      "sem": _np(scene.sem[b, :n])}
+                out_dict = prepare_output_dict(
+                    sc, int(scene.map_idx[b]), store.map_names, dt,
+                    state_norm, att_norm, _np(init_future_pred[b, :n]),
+                    _np(final_traj[b, :n]),
+                    sol_fut_traj=(sol_traj_store[b][:n] if adv_ok[b]
+                                  else None),
+                    attack_agt=int(min_agt[b]), attack_t=int(min_t[b]),
+                    adv_z=_np(z_adv[b, :n]),
+                    sol_z=(sol_z_store[b][:n] if adv_ok[b] else None),
+                    prior_distrib=(_np(prior[0][b, :n]),
+                                   _np(prior[1][b, :n])),
+                    internal_ego_traj=_np(internal_pred[b, 0]),
+                )
+                save_scenario(os.path.join(scen_dir, result_dir),
+                              "scene_%04d" % batch_ids[b], out_dict)
+        if timings is not None:
+            timings["batches"].append(batch_times[-1])
+
+    elapsed = time.time() - t_start
+    Logger.log("==== adv scenario generation done ====")
+    for k, v in stats.items():
+        Logger.log(f"{k} = {v}")
+    Logger.log("total time: %.1f sec (%.2f scenarios/hour)" % (
+        elapsed, stats["adv_success"] * 3600.0 / max(elapsed, 1e-9)))
+    if len(batch_times) > 1:
+        # steady-state throughput: drop the first batch (it pays the
+        # one-time set-up: cuDNN plans, the allocator's first growth)
+        warm = batch_times[1:]
+        secs = sum(t for t, _, _ in warm)
+        scn = sum(b for _, b, _ in warm)
+        adv = sum(a for _, _, a in warm)
+        Logger.log(
+            "steady state (excl. first batch): %.1f sec for %d scenes -> "
+            "%.1f candidate scenarios/hour, %.1f adv-success/hour" % (
+                secs, scn, scn * 3600.0 / max(secs, 1e-9),
+                adv * 3600.0 / max(secs, 1e-9)))
+    return stats
+
+
+if __name__ == "__main__":
+    main()

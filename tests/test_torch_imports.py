@@ -2,7 +2,7 @@
 
 Every module of ``strive_tpu_torch/``, ``tools/`` and ``chip_smoke.py`` is
 scanned (AST, so imports inside functions count too) for imports of jax,
-flax, optax or strive_tpu. The package must import on a machine without nvcc or
+flax, optax, strive_tpu or yaml. The package must import on a machine without nvcc or
 triton, and a call on CPU tensors must take the plain versions without
 launching (or building) a kernel.
 """
@@ -23,7 +23,9 @@ from strive_tpu_torch.utils import build
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "strive_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "strive_tpu"}
+# yaml too: the card's machine has no PyYAML (utils/config.py reads the
+# config files itself)
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "strive_tpu", "yaml"}
 SOURCES = sorted(p.relative_to(ROOT).as_posix()
                  for p in [*PACKAGE.rglob("*.py"), *ROOT.glob("tools/*.py")]
                  ) + ["chip_smoke.py"]

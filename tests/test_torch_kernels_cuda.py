@@ -144,6 +144,27 @@ def test_footprint_main_path_matches_plain(dev):
     kc.coll_point_error(args)
 
 
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+def test_map_crop_sampling_shape_matches_plain(dev, layout):
+    """K1 at prior sampling's shape: 1 scene x 20 samples x 16 agents =
+    320 poses of 256 px in one launch, on the full-width store."""
+    args = kc.sampling_crop_args(dev)
+    assert args[2].shape == (320, 4)
+    args = (*args[:-1], layout)
+    got = crop_kernel.map_crop(*args)
+    ref = crop_kernel.map_crop_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def test_footprint_solution_shape_matches_plain(dev):
+    """K2 at the solution loss's shape: one car a scene, B=4, its 16 poses
+    interpolated x3 (192 cars)."""
+    _, args = kc.solution_k2(dev)
+    assert args[2].shape == (192, 4)
+    kc.coll_point_error(args)
+
+
 def test_cuda_dispatch_launches_the_kernels(dev, store):
     rng = np.random.default_rng(4)
     pos = torch.from_numpy(_poses(rng, 4, 150.0, 360.0)).to(dev)
