@@ -7,9 +7,12 @@ Drives the port's main path — ``TrafficModel.embed`` and then the open-loop
 drives the JAX package — at full width: B=4 scenes x NA=8 agents, PT=4,
 FT=12, 256 px crops, the default model widths, f32 with TF32 off, random
 weights from a seed, on a synthetic store of 2 maps x 2048 px x 4 channels
-at 4 px/m; the closed loop on the same; and the scenario-generation
+at 4 px/m; the closed loop on the same; the scenario-generation
 pipeline through its entry point, as ``scripts/adv_scenario_gen.py`` runs
-it, at the production config's widths (phase 9). Phases:
+it, at the production config's widths (phase 9); and refine, training and
+evaluation through their entry points, as ``scripts/refine_traffic_optim.py``,
+``train_traffic.py`` and ``test_traffic.py`` run them, at their configs'
+widths (phases 10 and 11). Phases:
 
 1. the card's name and power limit (nvidia-smi); fails without CUDA;
 2. builds the CUDA kernels from ``strive_tpu_torch/csrc`` (nvcc, parallel);
@@ -58,7 +61,9 @@ it, at the production config's widths (phase 9). Phases:
       ``kernel_cases.solution_k2``) within phase 4's tolerance; each timed
       beside its plain version and its bound;
    b. ``configs/adv_gen_synthetic.cfg`` with 3 iterations on 4 scenes,
-      on the card (cuDNN deterministic, TF32 off) and on the CPU: equal
+      on the card (cuDNN deterministic, TF32 off) and on the CPU, from
+      torch's default initializers seeded 0 (``torch_default_init``, the
+      weights its bounds were measured with): equal
       stats, folders, attackers and attack steps, every file of the JAX
       package's schema; the optimized trajectories and latents within
       the measured bounds ``PARITY_TRAJ_M`` / ``PARITY_LATENT``;
@@ -77,6 +82,54 @@ it, at the production config's widths (phase 9). Phases:
       ``sol_future_len`` 16 on the main path's model, scenes and store
       (the scenes' futures as the adversarial result): finite, the non-ego
       rows equal to the input, 20 x 16 + 12 crops and 20 footprints;
+10. (run after 9) refine, ``strive_tpu_torch.scripts.refine_traffic_optim``:
+   a. K1 at a decode step of training (B=8 x 16 agents = 128 poses) and of
+      refine (B=10: 160 poses), bit-exact against its plain version, and K2
+      at the refine loss's shape (B=10 x 16 agents x 48 interpolated poses
+      = 7,680 cars, ``kernel_cases.refine_k2``) and the training loss's
+      (the ego's 12 prior-sample poses x B=8 = 96 cars,
+      ``kernel_cases.training_k2``) within phase 4's tolerance; each timed
+      beside its plain version and its bound;
+   b. phase 5's small run through ``run_refine_optim``, 3 Adam and 2
+      L-BFGS iterations (lr 0.05, the refine config's weights), on the
+      card and on the CPU: losses rtol 1e-3, latents within the measured
+      ``SMALL_REFINE_Z`` (the reason beside it), L-BFGS's losses never
+      rising, and the loss evaluations of each device printed (equal when
+      the linesearch took the same branches);
+   c. the entry point at ``configs/refine_traffic_optim.cfg``'s widths
+      (without its ``ckpt`` and ``viz`` lines; synthetic, ``--max_agents``
+      16, the test split's first 17 scenes, of which 10 have the
+      ``feasibility_num`` of 10 agents: one batch of 10; 256 px,
+      ``samp_future_len`` 16), random weights, 20 Adam iterations, then 5
+      L-BFGS iterations: finite losses (L-BFGS's never rising), the stats,
+      every JSON of the refine schema with finite numbers, and the K1/K2
+      counters, set to 0 just before each run, equal to the launches
+      worked out: 2 + samp_future_len + save_future_len crops a batch
+      (the sample's embed and decode, the embed, the final decode) and
+      samp_future_len crops and one footprint a loss evaluation (one an
+      Adam iteration; L-BFGS's iterates and linesearch trial points,
+      counted at ``avoid_coll_loss``); no window or bisect kernel;
+11. training and evaluation:
+   a. one train step of phase 5's small model on the card against the CPU
+      (the same weights and step noise, lr 1e-4, cuDNN deterministic, TF32
+      off): loss rtol 1e-4, updated parameters atol 1e-5 where the
+      gradient is not float noise (an element the CPU's Adam moved by
+      under 0.99 lr, |g| < 1e-6, is held within 2 lr: Adam's first step
+      lr g / (|g| + 1e-8) is noise there too); and, since that step is
+      about lr sign(g), the step's gradients themselves, leaf by leaf,
+      within ``TRAIN_GRAD_RTOL`` of the leaf's norm;
+   b. ``train_traffic`` at ``configs/train_synth_prod.cfg``'s full widths
+      (B=8, NA=16, FT=12, 256 px, both collision priors) for one epoch of 5
+      batches and its validation pass of 5: finite metrics, the three
+      checkpoints, K1 1 + 2 FT and K2 1 launch a step exactly; the
+      steady-state ms a step (the median after the first), scenes/s,
+      ``torch.cuda.max_memory_allocated`` and the device's busy share over
+      two train steps (``torch.profiler``);
+   c. ``test_traffic`` with ``configs/test_synth_prod.cfg``'s flags (viz
+      off, 16 scenes) and the refine entry point (5 iterations), both
+      reading b's ``latest_model`` through ``--ckpt``: every metric finite,
+      the stats of c above, test_traffic's K1 launches exact (2 (1 + FT) +
+      1 + the sample length a batch, no K2);
 7. the window kernels of the gather probes, K3 ``window_crop_tiles``, K4a
    ``window_extract`` and K4b ``window_take``: each against its plain
    version at the probe scripts' shapes and on edge cases (windows at the
@@ -104,13 +157,14 @@ it, at the production config's widths (phase 9). Phases:
    (``probes.mosaic_bisect.run``) with the K5 counters set to 0: every
    variant correct, and the counters equal to the launches worked out from
    ``REPS`` and each variant's kernel;
-10. prints the probes' and the variants' JSON lines, the ``closed_loop``
+12. prints the probes' and the variants' JSON lines, the ``closed_loop``
    JSON line (B, NA, FT, iters; it/s, planner ms per call and share for
    each backend; the device planner's kernels per call; the parity
    numbers of a; the card), the ``pipeline`` JSON line (phase 9: per-stage
    wall seconds and calls, sampling seconds a candidate, candidate scenes
    an hour for the batch, the K1/K2 launches, b's largest differences, the
-   cuts in ``reduced``, the card), the ``kernels`` JSON line, the main path's it/s
+   cuts in ``reduced``, the card), the ``refine`` and ``training`` JSON
+   lines (phases 10 and 11), the ``kernels`` JSON line, the main path's it/s
    beside the card's name and power limit, and last the device JSON line.
    Each kernel's ``path`` names the path its ``launches`` were counted on:
    the open-loop main path for K1 and K2, the gather-probe path for K3 and
@@ -118,7 +172,9 @@ it, at the production config's widths (phase 9). Phases:
    path: ``main_path_launches``); every entry's ``closed_loop_launches``
    is its count in one closed-loop run of c and d; K1's and K2's
    ``pipeline_launches`` their counts in phase 9c and ``pipeline_shape``
-   their phase-9a timings.
+   their phase-9a timings; ``refine_shape`` and ``training_shape`` their
+   phase-10a timings, ``refine_launches`` their counts in 10c's Adam run
+   and ``training_launches_per_step`` theirs in 11b.
 
 Any failure raises, and the script exits non-zero.
 """
@@ -148,6 +204,18 @@ FOOTPRINT_FLOPS_PER_SAMPLE = 13  # 2 mul (extents) + the crop's 9 + 2 adds
 
 def log(msg):
     print(msg, file=sys.stderr, flush=True)
+
+
+def zero(counters):
+    """Set every launch counter to 0."""
+    for counts in counters:
+        for k in counts:
+            counts[k] = 0
+
+
+def counted(counters):
+    """{kernel: launches} over all counters."""
+    return {k: v for counts in counters for k, v in counts.items()}
 
 
 def card_rates(name):
@@ -851,9 +919,7 @@ def closed_loop_phase(torch, np, tm, model, scene, store, norm, counters):
         run_optim(run_adv_gen_optim, model, scene, store, emb, 2,
                   planner_rollout_fn=fn)  # warm-up
         torch.cuda.synchronize()
-        for counts in counters:
-            for k in counts:
-                counts[k] = 0
+        zero(counters)
         with torch.no_grad():
             emb = model.embed(scene, store)
         torch.cuda.synchronize()
@@ -863,7 +929,7 @@ def closed_loop_phase(torch, np, tm, model, scene, store, norm, counters):
             planner_rollout_fn=fn)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        got = {k: v for counts in counters for k, v in counts.items()}
+        got = counted(counters)
         expected = {k: 0 for k in got}
         expected.update({"map_crop": 1 + FT * ITERS + FT,
                          "footprint_coll_point": ITERS + 1})
@@ -917,7 +983,9 @@ PARITY_CFG = "configs/adv_gen_synthetic.cfg"  # b: card against CPU
 # 1e-3: the 75-iteration fit amplifies float noise (ROADMAP §3). Measured
 # on this config between two float orders: the port against strive_tpu on
 # the CPU 0.17 m / 0.55 (tests/test_torch_adv_scenario_gen.py), the card
-# against the CPU 0.092 m / 0.157 (PERF.md, the pipeline findings)
+# against the CPU 0.092 m / 0.157 (PERF.md, the pipeline findings), with
+# the weights of ``torch_default_init``: the amplification depends on the
+# weights, and Flax's distributions took the card to 0.64 m / 0.90
 PARITY_TRAJ_M, PARITY_LATENT = 0.2, 0.6
 SCHEMA = {"N", "dt", "map", "lw", "sem", "past", "fut_init", "fut_adv",
           "fut_internal_ego", "attack_agt", "attack_t", "z_adv", "z_prior"}
@@ -925,14 +993,30 @@ SOLVED_KEYS = {"fut_sol", "z_sol"}  # in adv_sol_success and sol_failed
 FOLDERS = ("adv_sol_success", "sol_failed", "adv_failed")
 
 
-def run_pipeline(argv, timings=None):
-    """The port's entry point in this process, its log lines to stderr."""
+def torch_default_init(model):
+    """torch's default initializers (``reset_parameters``) seeded 0 on the
+    CPU: b's weights, in place of the entry point's ``init_params``."""
+    import torch
+
+    torch.manual_seed(0)
+    for m in model.modules():
+        if m is not model and hasattr(m, "reset_parameters"):
+            m.reset_parameters()
+
+
+def quiet(fn, *args, **kw):
+    """``fn`` with its log lines (stdout) sent to stderr."""
     import contextlib
 
+    with contextlib.redirect_stdout(sys.stderr):
+        return fn(*args, **kw)
+
+
+def run_pipeline(argv, timings=None):
+    """The port's entry point in this process, its log lines to stderr."""
     from strive_tpu_torch.scripts import adv_scenario_gen as gen
 
-    with contextlib.redirect_stdout(sys.stderr):
-        return gen.main(argv, timings)
+    return quiet(gen.main, argv, timings)
 
 
 def scenario_jsons(np, out):
@@ -1029,9 +1113,7 @@ def solution_stage(torch, tm, model, scene, store, norm, counters):
         emb = model.embed(scene, store)
     pri = emb["prior_out"]
     final = scene.future_gt[..., :4]
-    for counts in counters:
-        for k in counts:
-            counts[k] = 0
+    zero(counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     z, sol, losses = run_find_solution_optim(
@@ -1039,7 +1121,7 @@ def solution_stage(torch, tm, model, scene, store, norm, counters):
         PIPE_ITERS, emb, pri, pri)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {k: v for counts in counters for k, v in counts.items()}
+    launches = counted(counters)
     expected = dict.fromkeys(launches, 0)
     expected.update(map_crop=PIPE_ITERS * SOL_FT + FT,
                     footprint_coll_point=PIPE_ITERS)
@@ -1120,9 +1202,12 @@ def pipeline_phase(torch, np, rates, card, counters, kernels):
     torch.cuda.empty_cache()
 
     # --- b. the entry point, card against CPU ------------------------------
+    from strive_tpu_torch.scripts import adv_scenario_gen as gen
+
     build_dir = os.path.join(ROOT, "build", "chip_smoke")
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True  # one result a run on the card
+    init_params, gen.init_params = gen.init_params, torch_default_init
     runs = {}
     try:
         for d in ("cuda", "cpu"):
@@ -1135,6 +1220,7 @@ def pipeline_phase(torch, np, rates, card, counters, kernels):
             runs[d] = (out, stats, time.perf_counter() - t0)
     finally:
         torch.backends.cudnn.deterministic = deterministic
+        gen.init_params = init_params
     line["b_card_vs_cpu"] = pipeline_parity(np, runs["cuda"][0],
                                             runs["cpu"][0], runs["cuda"][1],
                                             runs["cpu"][1])
@@ -1157,13 +1243,11 @@ def pipeline_phase(torch, np, rates, card, counters, kernels):
             "cuda", "--out", out]
     pc = gen.parse_cfg(argv)
     timings = {}
-    for counts in counters:
-        for k in counts:
-            counts[k] = 0
+    zero(counters)
     t0 = time.perf_counter()
     stats = run_pipeline(argv, timings)
     wall = time.perf_counter() - t0
-    launches = {k: v for counts in counters for k, v in counts.items()}
+    launches = counted(counters)
     calls = timings["calls"]
     FTp, SFL, it = pc.future_len, pc.sol_future_len, pc.num_iters
     expected = dict.fromkeys(launches, 0)
@@ -1196,8 +1280,9 @@ def pipeline_phase(torch, np, rates, card, counters, kernels):
         "config": f"{PIPE_CFG} without its ckpt line",
         "reduced": {"num_iters": "200 -> 20",
                     "synth_scenes": f"48 -> {PIPE_SCENES} (one batch of 4)",
-                    "weights": "random (torch.manual_seed(0)) in place of "
-                               "the trained checkpoint"},
+                    "weights": "random, Flax's distributions seeded 0 "
+                               "(init_model_params), in place of the "
+                               "trained checkpoint"},
         "B": pc.batch_size, "NA": pc.max_agents, "FT": FTp,
         "sol_future_len": SFL, "num_samples": pc.num_samples,
         "num_iters": it, "stats": stats, "batches": timings["batches"],
@@ -1214,6 +1299,432 @@ def pipeline_phase(torch, np, rates, card, counters, kernels):
     log(f"c. full-width pipeline: {stats}, batches {timings['batches']}, "
         f"stages {secs}, launches {line['launches']} as worked out, JSONs "
         f"read back ({n_json})")
+    return line
+
+
+DEV = "cuda"  # phases 10 and 11 run on this device
+REFINE_CFG = "configs/refine_traffic_optim.cfg"  # phase 10c's widths
+REFINE_W = {"coll_veh": 100.0, "coll_env": 100.0, "init_z": 0.01,
+            "motion_prior": 1.0}  # the config's loss weights
+# the synthetic test split's first 17 scenes hold 10 with at least
+# feasibility_num = 10 agents, the last of them among those: one batch of 10
+REFINE_SCENES = 17
+REFINE_ITERS = {"adam": 20, "lbfgs": 5}  # the config's 200 (Adam), cut
+TRAIN_CFG = "configs/train_synth_prod.cfg"  # phase 11b's widths
+TRAIN_SCENES = 40  # a split: 5 batches of 8 (the config's 96, cut)
+TEST_CFG = "configs/test_synth_prod.cfg"  # phase 11c's flags
+TEST_SCENES = 16  # 2 batches of 8 (the config's 96, cut)
+TRAIN_W = {"recon": 1.0, "kl": 0.004, "coll_veh_prior": 0.05,
+           "coll_env_prior": 0.1}  # the trainer's defaults
+# 11a's bound on each leaf's gradient, card against CPU, as
+# |g_card - g_cpu| / |g_cpu| over the leaf: float-order noise, 2.4e-6 at
+# most between two CPU thread counts and 4.3e-6 card against CPU (H100),
+# while a dropped term or a wrong scale moves a leaf by far more
+TRAIN_GRAD_RTOL = 1e-4
+# 10b's bound on the latents, card against CPU. Not phase 5's 1e-4: the
+# first L-BFGS linesearch of this run doubles its stepsize to the 20-step
+# cap on both devices (21 loss evaluations each: the same branches), and
+# the step that far out carries the float noise of the direction with it.
+# Measured on an H100: L-BFGS 2.4e-4 after 2 iterations, Adam 6.9e-7
+SMALL_REFINE_Z = 1e-3
+REFINE_SCHEMA = {"N", "dt", "map", "lw", "sem", "past", "fut_init",
+                 "fut_adv", "z_adv", "z_prior"}
+
+
+def cfg_copy(src, drop, name):
+    """A copy of config ``src`` under build/chip_smoke without the lines
+    whose keys are in ``drop``; :return: its path."""
+    build_dir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(build_dir, exist_ok=True)
+    with open(os.path.join(ROOT, src)) as f:
+        lines = [l for l in f if l.split(":")[0].strip() not in drop]
+    path = os.path.join(build_dir, name)
+    with open(path, "w") as f:
+        f.writelines(lines)
+    return path
+
+
+def new_shapes(torch, rates, kernels):
+    """10a: K1 at a decode step of training (B=8) and refine (B=10), K2 at
+    the refine loss's and the training loss's shapes: each against its
+    plain version (K1 bit-exact; K2 valid/frac exact, coll_pt within
+    phase 4's tolerance), timed beside it and its bound."""
+    from strive_tpu_torch import kernel_cases as kc
+    from strive_tpu_torch.maps import crop_kernel, queries
+    from strive_tpu_torch.utils.timing import cuda_ms
+
+    dev = torch.device("cuda")
+    shapes = [
+        ("map_crop", "training_shape", "a decode step of training: B=8 x "
+         "16 agents = 128 poses, 256 px", kc.decode_crop_args(dev, 8)),
+        ("map_crop", "refine_shape", "a decode step of refine: B=10 x 16 "
+         "agents = 160 poses, 256 px", kc.decode_crop_args(dev, 10)),
+        ("footprint_coll_point", "refine_shape", "the refine loss: B=10 x "
+         "16 agents x 48 interpolated poses = 7680 cars",
+         kc.refine_k2(dev)[1]),
+        ("footprint_coll_point", "training_shape", "the training loss's "
+         "ego prior: B=8 x 12 poses = 96 cars", kc.training_k2(dev)[1]),
+    ]
+    for name, key, what, args in shapes:
+        kern = getattr(crop_kernel, name)
+        plain = getattr(crop_kernel, f"{name}_plain")
+        if name == "map_crop":
+            got, want = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"10a. map_crop at {what} differs from "
+                                     "plain")
+            err = float((got - want).abs().amax())
+            del got, want
+            work = crop_work
+        else:
+            err = kc.coll_point_error(args)
+            work = footprint_work
+        entry = {"shape": what, "max_abs_err": err,
+                 "ms": cuda_ms(lambda: kern(*args), 200),
+                 "plain_ms": cuda_ms(lambda: plain(*args), 10)}
+        entry["bound_ms"], entry["bound_by"] = bound_ms(
+            rates, *work(torch, queries, args))
+        kernels[name][key] = entry
+        log(f"10a. {name} at {what}: max err {err:.3g}; {entry['ms']:.4f} ms "
+            f"(plain {entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f}"
+            f" ms by {entry['bound_by']})")
+        torch.cuda.empty_cache()
+
+
+def refine_phase(torch, np, tm, norm, rates, card, counters, kernels):
+    """Phase 10: refine on the card (module doc).
+
+    :return: the ``refine`` JSON line's dict"""
+    from strive_tpu_torch.optim import refine
+    from strive_tpu_torch.scripts import refine_traffic_optim as rto
+
+    line = {"refine": REFINE_CFG, "card": card}
+    new_shapes(torch, rates, kernels)
+
+    # --- b. phase 5's small run, card against CPU -------------------------
+    small = {}
+    real_loss = refine.avoid_coll_loss
+    evals = []
+
+    def counting_loss(*a, **k):  # one a value-and-gradient evaluation
+        evals[-1] += 1
+        return real_loss(*a, **k)
+
+    refine.avoid_coll_loss = counting_loss
+    try:
+        for opt, iters in (("adam", 3), ("lbfgs", 2)):
+            runs = []
+            for d in ("cpu", DEV):
+                m, st, sc, emb = small_setup(torch, tm, norm, d)
+                pri = emb["prior_out"]
+                evals.append(0)
+                out = refine.run_refine_optim(
+                    m, pri[0], 0.05, REFINE_W, sc, st, iters, emb, pri,
+                    samp_future_len=SMALL_KW["FT"] + 2,
+                    save_future_len=SMALL_KW["FT"], optimizer=opt)
+                runs.append([t.cpu() for t in out])
+            small[opt] = {
+                "iters": iters, "evaluations_cpu_card": evals[-2:],
+                "loss_max_rel": float(((runs[1][2] - runs[0][2]).abs()
+                                       / runs[0][2].abs()).max()),
+                "latent_max_abs": float((runs[1][0] - runs[0][0]).abs()
+                                        .max())}
+            if opt == "lbfgs" and bool((runs[1][2].diff() > 0).any()):
+                raise AssertionError(f"10b. L-BFGS losses rose: {runs[1][2]}")
+    finally:
+        refine.avoid_coll_loss = real_loss
+    line["b_card_vs_cpu"] = small
+    log(f"10b. small refine run, card against CPU: {small}")
+    for opt, r in small.items():
+        if r["loss_max_rel"] > 1e-3 or r["latent_max_abs"] > SMALL_REFINE_Z:
+            raise AssertionError(f"10b. {opt}: card against CPU {r}")
+
+    # --- c. the entry point at the config's widths ------------------------
+    cfg = cfg_copy(REFINE_CFG, {"ckpt", "viz"}, "refine_traffic_optim.cfg")
+    refine.avoid_coll_loss = counting_loss
+    try:
+        for opt, iters in REFINE_ITERS.items():
+            out = os.path.join(ROOT, "build", "chip_smoke", f"refine_{opt}")
+            argv = ["-c", cfg, "--data_version", "synthetic", "--max_agents",
+                    "16", "--synth_scenes", str(REFINE_SCENES),
+                    "--max_scenes", str(REFINE_SCENES), "--num_iters",
+                    str(iters), "--device", DEV, "--out", out]
+            if opt == "lbfgs":
+                argv.append("--optim_use_lbfgs")
+            pc = rto.parse_cfg(argv)
+            timings = {}
+            evals.append(0)
+            zero(counters)
+            t0 = time.perf_counter()
+            stats = quiet(rto.main, argv, timings)
+            wall = time.perf_counter() - t0
+            launches = counted(counters)
+            n_batch = len(timings["batches"])
+            expected = dict.fromkeys(launches, 0)
+            expected["map_crop"] = n_batch * (
+                2 + pc.samp_future_len + pc.save_future_len) \
+                + evals[-1] * pc.samp_future_len
+            expected["footprint_coll_point"] = evals[-1]
+            if launches != expected:
+                raise AssertionError(f"10c. {opt} launches {launches}, "
+                                     f"expected {expected}")
+            losses = np.concatenate(timings["losses"])
+            if not np.isfinite(losses).all() or len(losses) != iters * n_batch:
+                raise AssertionError(f"10c. {opt} losses {losses}")
+            if opt == "lbfgs" and (np.diff(losses) > 0).any():
+                raise AssertionError(f"10c. L-BFGS losses rose: {losses}")
+            n_json = check_jsons(np, os.path.join(out, "scenario_results"),
+                                 ("success", "failed"), REFINE_SCHEMA)
+            if n_json != stats["scenes"] or stats != {
+                    "scenes": 10, "success": stats["success"],
+                    "failed": 10 - stats["success"], "skipped": 7}:
+                raise AssertionError(f"10c. {opt} stats {stats}, {n_json} "
+                                     "JSONs")
+            line[f"c_{opt}"] = {
+                "stats": stats, "iters": iters, "evaluations": evals[-1],
+                "batch_seconds": timings["batches"], "wall_seconds": wall,
+                "losses_first_last": [float(losses[0]), float(losses[-1])],
+                "launches": {k: launches[k] for k in ("map_crop",
+                                                      "footprint_coll_point")}}
+            log(f"10c. refine entry point ({opt}): {line[f'c_{opt}']}")
+    finally:
+        refine.avoid_coll_loss = real_loss
+    line.update({"B": pc.batch_size, "NA": 16, "crop_px": pc.map_obs_size_pix,
+                 "samp_future_len": pc.samp_future_len,
+                 "config": f"{REFINE_CFG} without its ckpt and viz lines, "
+                           "--data_version synthetic --max_agents 16",
+                 "reduced": {"num_iters": "200 -> 20 (Adam), 5 (L-BFGS)",
+                             "scenes": f"{REFINE_SCENES} synthetic test "
+                                       "scenes (10 kept: one batch)",
+                             "weights": "random (Flax's distributions, "
+                                        "seed 0)"}})
+    for name in ("map_crop", "footprint_coll_point"):
+        kernels[name]["refine_launches"] = line["c_adam"]["launches"][name]
+    return line, cfg
+
+
+def check_jsons(np, root, folders, schema):
+    """Every JSON under ``root``'s ``folders`` has ``schema``'s keys and
+    finite numbers; :return: their count."""
+    n = 0
+    for d in folders:
+        path = os.path.join(root, d)
+        for name in sorted(os.listdir(path)) if os.path.isdir(path) else []:
+            with open(os.path.join(path, name)) as f:
+                js = json.load(f)
+            if set(js) != schema:
+                raise AssertionError(f"{d}/{name}: keys {sorted(js)}")
+            for k in schema - {"map"}:
+                v = js[k]
+                vals = [v["mean"], v["var"]] if k == "z_prior" else [v]
+                if not all(np.isfinite(np.asarray(x, float)).all()
+                           for x in vals):
+                    raise AssertionError(f"{d}/{name}: {k} not finite")
+            n += 1
+    return n
+
+
+def busy_share(torch, fn):
+    """Wall ms, device busy ms and kernel launches of ``fn`` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "busy_share": busy / wall,
+            "kernel_launches": sum(e.count for e in kern)}
+
+
+def training_phase(torch, np, tm, norm, card, counters, kernels, refine_cfg):
+    """Phase 11: training and evaluation on the card (module doc).
+
+    :return: the ``training`` JSON line's dict"""
+    from strive_tpu_torch.data.loading import load_environment
+    from strive_tpu_torch.normalize import (att_normalizer_for,
+                                            effective_categories,
+                                            state_normalizer_for)
+    from strive_tpu_torch.scripts import common
+    from strive_tpu_torch.scripts import refine_traffic_optim as rto
+    from strive_tpu_torch.scripts import test_traffic as tt
+    from strive_tpu_torch.scripts import train_traffic as trt
+    from strive_tpu_torch.train import Trainer
+
+    line = {"training": TRAIN_CFG, "card": card}
+    cats = ("car", "truck")
+
+    # --- a. one train step of phase 5's small model, card against CPU ------
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    lr = 1e-4  # the config's
+    try:
+        res = []
+        for d in ("cpu", DEV):
+            m, st, sc, _ = small_setup(torch, tm, norm, d)
+            before = {k: v.detach().cpu().clone()
+                      for k, v in m.named_parameters()}
+            trainer = Trainer(m, TRAIN_W, state_normalizer_for(cats),
+                              att_normalizer_for(cats), lr=lr)
+            # the step's gradients, from the noise run_epoch then draws
+            eps, eps_samp = trainer.draw_noise(sc)
+            trainer.generator.manual_seed(0)
+            with torch.enable_grad():
+                loss, _ = trainer._loss(sc, st, 0.002, eps, eps_samp)
+                grads = torch.autograd.grad(loss, trainer.params)
+            grads = {k: g.detach().cpu() for (k, _), g
+                     in zip(m.named_parameters(), grads)}
+            met, _ = trainer.run_epoch([sc], st, 0.002)
+            res.append((met, {k: v.detach().cpu()
+                              for k, v in m.named_parameters()}, grads))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (cpu_m, cpu_p, cpu_g), (card_m, card_p, card_g) = res
+    rel = abs(card_m["loss"] - cpu_m["loss"]) / abs(cpu_m["loss"])
+    if rel > 1e-4:
+        raise AssertionError(f"11a. loss card {card_m['loss']}, CPU "
+                             f"{cpu_m['loss']}")
+    # Adam's first step is about lr * sign(g), blind to a gradient's size:
+    # the gradients themselves are held leaf by leaf
+    grad_rel = {k: float((card_g[k] - g).norm() / g.norm())
+                for k, g in cpu_g.items()}
+    worst_leaf = max(grad_rel, key=grad_rel.get)
+    if grad_rel[worst_leaf] > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"11a. gradient of {worst_leaf} "
+                             f"{grad_rel[worst_leaf]:.3g} apart (relative)")
+    worst, noise_worst = 0.0, 0.0
+    for k, want in cpu_p.items():
+        # where the CPU's first Adam step is under 0.99 lr, the gradient was
+        # float noise (|g| < 1e-6), and so is the step: held within 2 lr
+        noise = (want - before[k]).abs() < 0.99 * lr
+        diff = (card_p[k] - want).abs()
+        worst = max([worst, *diff[~noise].tolist()])
+        noise_worst = max([noise_worst, *diff[noise].tolist()])
+    if worst > 1e-5 or noise_worst > 2 * lr:
+        raise AssertionError(f"11a. parameters {worst} apart ({noise_worst} "
+                             "where the gradient is noise)")
+    line["a_card_vs_cpu"] = {"loss_rel": rel, "params_max_abs": worst,
+                             "noise_grad_params_max_abs": noise_worst,
+                             "grad_rel_max": grad_rel[worst_leaf],
+                             "grad_rel_worst_leaf": worst_leaf,
+                             "grad_leaves": len(grad_rel)}
+    log(f"11a. one train step, card against CPU: {line['a_card_vs_cpu']}")
+
+    # --- b. train_traffic at full width --------------------------------------
+    out = os.path.join(ROOT, "build", "chip_smoke", "train")
+    argv = ["-c", os.path.join(ROOT, TRAIN_CFG), "--epochs", "1",
+            "--synth_scenes", str(TRAIN_SCENES), "--device", DEV,
+            "--out", out]
+    pc = trt.parse_cfg(argv)
+    timings = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero(counters)
+    t0 = time.perf_counter()
+    quiet(trt.main, argv, timings)
+    wall = time.perf_counter() - t0
+    launches = counted(counters)
+    peak = torch.cuda.max_memory_allocated()
+    n_train = len(timings["train_steps"])
+    n_val = -(-TRAIN_SCENES // pc.batch_size)
+    steps = n_train + n_val
+    expected = dict.fromkeys(launches, 0)
+    expected["map_crop"] = steps * (1 + 2 * pc.future_len)
+    expected["footprint_coll_point"] = steps
+    if launches != expected:
+        raise AssertionError(f"11b. launches {launches}, expected {expected}")
+    ms = [m_ for m_ in (timings["train"][0], timings["val"][0])]
+    if not all(np.isfinite(v) for m_ in ms for v in m_.values()):
+        raise AssertionError(f"11b. metrics {ms}")
+    ckpt_dir = os.path.join(out, "checkpoints")
+    names = sorted(os.listdir(ckpt_dir))
+    if names != ["best_eval_model", "epoch_00000000_model", "latest_model"]:
+        raise AssertionError(f"11b. checkpoints {names}")
+    steady = sorted(timings["train_steps"][1:])
+    step_s = steady[len(steady) // 2]
+    ckpt = os.path.join(ckpt_dir, "latest_model")
+
+    # the device's busy share over two train steps of the same config
+    ds, store, _, sn, an = load_environment(pc, "train", device=DEV)
+    nc = len(effective_categories(pc.agent_types, pc.reduce_cats))
+    model = common.build_model(pc, sn, an, nc, "cpu")
+    common.load_checkpoint(model, ckpt)
+    model.to(DEV)
+    trainer = Trainer(model, TRAIN_W, sn, an, lr=pc.lr)
+    batch = ds.get_batch(list(range(pc.batch_size)))
+    trainer.run_epoch([batch], store, 0.0)  # warm-up
+    prof = busy_share(torch, lambda: trainer.run_epoch([batch, batch], store,
+                                                       0.0))
+    line["b"] = {
+        "B": pc.batch_size, "NA": pc.max_agents, "FT": pc.future_len,
+        "crop_px": pc.map_obs_size_pix, "train_steps": n_train,
+        "val_steps": n_val, "wall_seconds": wall,
+        "step_seconds": timings["train_steps"],
+        "steady_ms_per_step": 1e3 * step_s,
+        "scenes_per_second": pc.batch_size / step_s,
+        "max_memory_allocated_gb": peak / 1e9,
+        "profile_two_steps": prof,
+        "train": timings["train"][0], "val": timings["val"][0],
+        "checkpoints": names,
+        "launches": {k: launches[k] for k in ("map_crop",
+                                              "footprint_coll_point")},
+        "launches_per_step": {"map_crop": 1 + 2 * pc.future_len,
+                              "footprint_coll_point": 1},
+        "reduced": {"epochs": "400 -> 1",
+                    "synth_scenes": f"96 -> {TRAIN_SCENES} a split"}}
+    for name, n in line["b"]["launches_per_step"].items():
+        kernels[name]["training_launches_per_step"] = n
+    log(f"11b. train_traffic at full width: {line['b']}")
+
+    # --- c. test_traffic and refine through --ckpt ------------------------
+    tcfg = cfg_copy(TEST_CFG, {"ckpt", "test_sample_viz_multi"},
+                    "test_synth_prod.cfg")
+    argv = ["-c", tcfg, "--ckpt", ckpt, "--synth_scenes", str(TEST_SCENES),
+            "--device", DEV, "--out", os.path.join(ROOT, "build",
+                                                  "chip_smoke", "test")]
+    tc = tt.parse_cfg(argv)
+    zero(counters)
+    t0 = time.perf_counter()
+    metrics = quiet(tt.main, argv)
+    test_wall = time.perf_counter() - t0
+    launches = counted(counters)
+    batches = -(-TEST_SCENES // tc.batch_size)
+    expected = dict.fromkeys(launches, 0)
+    # a batch: the posterior-mean decode, the samples, the reconstruction
+    expected["map_crop"] = batches * (2 * (1 + tc.future_len) + 1
+                                      + tc.test_sample_future_len)
+    if launches != expected:
+        raise AssertionError(f"11c. test_traffic launches {launches}, "
+                             f"expected {expected}")
+    if len(metrics) != 16 or not all(np.isfinite(v)
+                                     for v in metrics.values()):
+        raise AssertionError(f"11c. test_traffic metrics {metrics}")
+    argv = ["-c", refine_cfg, "--data_version", "synthetic", "--max_agents",
+            "16", "--synth_scenes", str(REFINE_SCENES), "--max_scenes",
+            str(REFINE_SCENES), "--num_iters", "5", "--ckpt", ckpt,
+            "--device", DEV, "--out", os.path.join(
+                ROOT, "build", "chip_smoke", "refine_ckpt")]
+    timings = {}
+    stats = quiet(rto.main, argv, timings)
+    losses = np.concatenate(timings["losses"])
+    if not np.isfinite(losses).all() or stats["scenes"] != 10:
+        raise AssertionError(f"11c. refine with --ckpt: {stats}, {losses}")
+    line["c"] = {"test_traffic": metrics, "test_seconds": test_wall,
+                 "test_launches": {k: launches[k] for k in (
+                     "map_crop", "footprint_coll_point")},
+                 "test_reduced": {"synth_scenes": f"96 -> {TEST_SCENES}",
+                                  "test_sample_viz_multi": "off (P10)"},
+                 "refine_stats": stats,
+                 "refine_losses_first_last": [float(losses[0]),
+                                              float(losses[-1])]}
+    log(f"11c. test_traffic and refine from the checkpoint: {line['c']}")
     return line
 
 
@@ -1374,13 +1885,11 @@ def main():
     main_path(2)  # warm-up: cuDNN plans, allocator
     counters = (crop_kernel.LAUNCHES, window_kernels.LAUNCHES,
                 bisect_kernels.LAUNCHES)
-    for counts in counters:
-        for k in counts:
-            counts[k] = 0
+    zero(counters)
     t0 = time.perf_counter()
     z, result, min_agt, min_t, losses, pred = main_path(ITERS)
     wall = time.perf_counter() - t0
-    launches = {k: v for counts in counters for k, v in counts.items()}
+    launches = counted(counters)
     expected = {"map_crop": 1 + FT * ITERS + FT,
                 "footprint_coll_point": ITERS + 1,
                 **dict.fromkeys(window_kernels.LAUNCHES, 0),
@@ -1420,6 +1929,18 @@ def main():
     pipeline["d_solution"] = solution_stage(torch, tm, model, scene, store,
                                             norm, counters)
 
+    # --- 10. refine; 11. training and evaluation ---------------------------
+    t0 = time.perf_counter()
+    refine_line, refine_cfg = refine_phase(torch, np, tm, norm, rates, card,
+                                           counters, kernels)
+    refine_line["phase_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    training = training_phase(torch, np, tm, norm, card, counters, kernels,
+                              refine_cfg)
+    training["phase_seconds"] = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+
     # --- 7. K3, K4a, K4b and the gather-probe path -------------------------
     k1_gelem_s = n_pix / (k1_ms * 1e-3) / 1e9
     window_entries, probes = window_phase(torch, rates, card, k1_gelem_s)
@@ -1432,6 +1953,8 @@ def main():
     print(json.dumps(bisect))
     print(json.dumps({"closed_loop": {**closed_loop, "card": card}}))
     print(json.dumps(pipeline))
+    print(json.dumps(refine_line))
+    print(json.dumps(training))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"main_path": "embed + open-loop adv optimization",
                       "B": B, "NA": NA, "FT": FT, "crop_px": MAP_PX,

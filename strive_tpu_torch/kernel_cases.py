@@ -2,8 +2,10 @@
 ``window_take`` and K5c ``window_sums`` to their plain versions, shared by
 ``chip_smoke.py``, ``tools/kernel_variants.py`` and the tests: the main
 path's K2 inputs, K1 and K2 at the shapes the scenario-generation pipeline
-gives them (prior sampling, the solution loss), the three kernels' edge
-cases, and the check of K2's contract (:func:`coll_point_error`)."""
+gives them (prior sampling, the solution loss) and the refine and training
+paths give them (a decode step of B scenes, the refine loss, the training
+loss's ego prior), the three kernels' edge cases, and the check of K2's
+contract (:func:`coll_point_error`)."""
 
 from __future__ import annotations
 
@@ -100,6 +102,47 @@ def solution_k2(device, B=4, sol_future_len=16):
         for k in ("past", "past_vis", "sem", "lw", "mask", "future",
                   "future_vis", "past_gt", "future_gt")})
     return store, main_path_coll_point_args(store, ego, *stats)
+
+
+def decode_crop_args(device, B, NA=16, L=256):
+    """K1's arguments at one decode step of B scenes x NA agents (every
+    pose of the step in one launch), 256 px with the default bounds, on
+    the full-width store: training's posterior and prior decodes (B=8, 128
+    poses at ``configs/train_synth_prod.cfg``) and refine's (B=10, 160
+    poses at ``configs/refine_traffic_optim.cfg``). The poses are the
+    scenes' first future step."""
+    store, scene, (smean, sstd, _, _) = _full_width_scene(device, 12, NA, B)
+    pos = (scene.future_gt[:, :, 0, :4] * sstd + smean).reshape(B * NA, 4)
+    mapix = scene.map_idx.repeat_interleave(NA)
+    lo, wo = queries.crop_offsets(DEFAULT_BOUNDS, L, L, device)
+    return (store.packed, store.dx, pos.contiguous(), mapix.contiguous(), lo,
+            wo, store.C, "nhwc")
+
+
+def refine_k2(device, B=10, NA=16, samp_future_len=16):
+    """``(store, args)``: K2's inputs at the refine loss's shape
+    (``avoid_coll_loss`` over every agent): B scenes x NA agents x their
+    ``samp_future_len`` poses interpolated x3 (7,680 cars at
+    ``configs/refine_traffic_optim.cfg``), on the full-width store."""
+    store, scene, stats = _full_width_scene(device, samp_future_len, NA, B)
+    return store, main_path_coll_point_args(store, scene, *stats)
+
+
+def training_k2(device, B=8, FT=12):
+    """``(store, args)``: K2's inputs at the training loss's shape (the
+    ego-only environment prior of ``traffic_model_loss``, no
+    interpolation): the ego of B scenes at its FT prior-sample poses (96
+    cars at ``configs/train_synth_prod.cfg``), on the full-width store."""
+    store, scene, (smean, sstd, amean, astd) = _full_width_scene(device, FT,
+                                                                 16, B)
+    ego = (scene.future_gt[:, 0, :, :4] * sstd + smean).reshape(B * FT, 4)
+    lw = (scene.lw[:, 0] * astd + amean)[:, None].expand(B, FT, 2)
+    mapix = scene.map_idx.repeat_interleave(FT)
+    L, W = queries.COLL_POINT_GRID
+    return store, (store.packed, store.dx, ego.contiguous(),
+                   lw.reshape(-1, 2).contiguous(), mapix.contiguous(),
+                   queries.linspace(-1.0, 1.0, L, device),
+                   queries.linspace(-1.0, 1.0, W, device), 0)
 
 
 def coll_point_cases(size_px, pix_per_m=4.0, seed=0):

@@ -19,6 +19,7 @@ Options of the JAX model that this port does not run yet raise
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -49,6 +50,36 @@ class NormConfig(NamedTuple):
                    tuple(state_norm.std_np.tolist()),
                    tuple(att_norm.mean_np.tolist()),
                    tuple(att_norm.std_np.tolist()))
+
+
+def init_model_params(model, seed=0):
+    """Draw the model's weights, in place, from the distributions of
+    strive_tpu's ``init_model_params`` (Flax's defaults): each Linear and
+    Conv2d weight LeCun-normal (a normal truncated at two standard
+    deviations, scaled to variance 1 / fan_in), every bias 0, every
+    LayerNorm and GroupNorm scale 1. The draws come from a CPU generator
+    seeded ``seed``, leaf by leaf in ``named_parameters`` order, and are
+    copied to the model's device, so every device gets the same weights.
+    """
+    gen = torch.Generator().manual_seed(seed)
+    norms = (nn.LayerNorm, nn.GroupNorm)
+    with torch.no_grad():
+        for mod in model.modules():
+            for name, p in mod.named_parameters(recurse=False):
+                if name == "bias":
+                    val = torch.zeros(p.shape)
+                elif isinstance(mod, norms):
+                    val = torch.ones(p.shape)
+                elif isinstance(mod, (nn.Linear, nn.Conv2d)):
+                    fan_in = p[0].numel()
+                    val = nn.init.trunc_normal_(torch.empty(p.shape),
+                                                generator=gen)
+                    val = val * (math.sqrt(1.0 / fan_in)
+                                 / .87962566103423978)
+                else:
+                    raise TypeError(f"no Flax initializer for {name} of "
+                                    f"{type(mod).__name__}")
+                p.copy_(val)
 
 
 class TrafficModel(nn.Module):
@@ -276,6 +307,17 @@ class TrafficModel(nn.Module):
             out["future_samp"] = self.decoder(scene, map_feat, past_feat, zp,
                                               map_store)
         return out
+
+    def reconstruct(self, scene: SceneBatch, map_store):
+        """Posterior-mean reconstruction (reference :227-257)."""
+        map_feat = self.encode_map(scene.past[:, :, -1, :4], scene.map_idx,
+                                   map_store)
+        past_feat = self.encode_past(scene)
+        post_mu, post_var = self.encoder(scene, map_feat, past_feat,
+                                         self.encode_future(scene))
+        return {"posterior_out": (post_mu, post_var),
+                "future_pred": self.decoder(scene, map_feat, past_feat,
+                                            post_mu, map_store)}
 
     def embed(self, scene: SceneBatch, map_store):
         """Prior (+posterior if future present) embedding (reference :372-403)."""

@@ -17,13 +17,15 @@ success check -> solution optimization -> scenario JSONs in the
   bridge, ``tpu`` the device planner (``DeviceRulePlanner``; the name
   stays so the configs parse). ``--closed_loop_mode`` is accepted; both
   values run the one eager closed loop of ``optim/adv.py``.
-- The weights are random, from ``init_params``; the prior noise of each
+- ``--ckpt`` names a checkpoint written by the port's ``train_traffic``;
+  without it the weights are random, from ``init_params`` (Flax's
+  distributions, a CPU generator seeded 0). The prior noise of each
   candidate comes from ``prior_noise``, drawn from one CPU generator
   seeded 0. Both are drawn on the CPU, so the card and the CPU see the
   same numbers.
-- Not ported yet, and raising ``NotImplementedError``: ``--ckpt`` (the
-  checkpoint port, P9), ``--viz`` and a non-synthetic ``--data_version``
-  (P10), ``--mesh_devices > 1`` (P11), ``--bf16`` (ROADMAP queue 1b).
+- Not ported yet, and raising ``NotImplementedError``: ``--viz`` and a
+  non-synthetic ``--data_version`` (P10), ``--mesh_devices > 1`` (P11),
+  ``--bf16`` (ROADMAP queue 1b).
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ from ..planners.device_planner import DeviceRulePlanner
 from ..planners.host_bridge import make_planner_host_fn, reset_planner
 from ..utils.config import add_base_args, get_parser
 from ..utils.logger import Logger, mkdir
-from .common import build_model
+from .common import (build_model, check_viz_and_data, init_params,
+                     load_checkpoint, prior_noise, resolve_device)
 
 INIT_FIT_ITERS = 75      # scripts/adv_scenario_gen.py:323
 PLANNER_REFIT_ITERS = 100  # scripts/adv_scenario_gen.py:370
@@ -130,43 +133,12 @@ def parse_cfg(argv=None):
 def check_ported(cfg):
     """Raise ``NotImplementedError`` on an option the port has not got yet,
     naming the step of ROADMAP that ports it."""
-    missing = [
-        (cfg.ckpt is not None, "--ckpt: reading a trained checkpoint (orbax) "
-                               "is the checkpoint port's (P9)"),
-        (cfg.viz, "--viz: rendering (viz.py) is P10's"),
-        (cfg.mesh_devices > 1, "--mesh_devices > 1: multi-GPU is P11's"),
-        (cfg.bf16, "--bf16: bf16 compute is ROADMAP queue 1b's"),
-        (cfg.data_version != "synthetic",
-         f"--data_version {cfg.data_version}: the nuScenes ETL is P10's"),
-    ]
-    for hit, msg in missing:
-        if hit:
-            raise NotImplementedError(msg)
-
-
-def resolve_device(name):
-    """``--device`` as a torch device; 'cuda' without a card raises."""
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda, but torch.cuda.is_available() is "
-                           "false; pass --device cpu to run on the CPU")
-    return dev
-
-
-def init_params(model, cfg):
-    """Draw the model's initial weights, in place, from
-    ``torch.manual_seed(0)`` on the CPU (the model must be there). Random
-    weights stand in for a trained checkpoint (``--ckpt`` raises, P9)."""
-    torch.manual_seed(0)
-    for m in model.modules():
-        if m is not model and hasattr(m, "reset_parameters"):
-            m.reset_parameters()
-
-
-def prior_noise(generator, shape):
-    """One candidate's standard-normal prior noise (1, NS, NA, D), drawn on
-    the CPU from ``generator``."""
-    return torch.randn(shape, generator=generator)
+    check_viz_and_data(cfg)
+    if cfg.mesh_devices > 1:
+        raise NotImplementedError("--mesh_devices > 1: multi-GPU is P11's")
+    if cfg.bf16:
+        raise NotImplementedError("--bf16: bf16 compute is ROADMAP queue "
+                                  "1b's")
 
 
 def _take_embed(emb, ids):
@@ -233,7 +205,10 @@ def main(argv=None, timings=None):
     if model.map_channels != store.C:
         raise ValueError(f"--map_layers give {model.map_channels} crop "
                          f"channels, the store has {store.C}")
-    init_params(model, cfg)
+    init_params(model)
+    if cfg.ckpt is not None:
+        load_checkpoint(model, cfg.ckpt)
+        Logger.log("Loaded checkpoint %s" % cfg.ckpt)
     model.to(device)
     dt = 0.5
 

@@ -2,8 +2,11 @@
 
 from __future__ import annotations
 
-from ..model.traffic_model import NormConfig, TrafficModel
+import torch
+
 from ..maps.store import num_channels
+from ..model.traffic_model import NormConfig, TrafficModel, init_model_params
+from ..utils.checkpoint import load_state
 
 
 def build_model(cfg, state_norm, att_norm, nc, device):
@@ -24,3 +27,42 @@ def build_model(cfg, state_norm, att_norm, nc, device):
         conv_filters=tuple(cfg.conv_filter_list),
         map_channels=num_channels(cfg.map_layers), device=device,
     )
+
+
+def resolve_device(name):
+    """``--device`` as a torch device; 'cuda' without a card raises."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda, but torch.cuda.is_available() is "
+                           "false; pass --device cpu to run on the CPU")
+    return dev
+
+
+def init_params(model):
+    """The model's initial weights, in place: Flax's distributions drawn
+    from a CPU generator seeded 0 (``init_model_params``), so the card and
+    the CPU start from the same numbers."""
+    init_model_params(model, seed=0)
+
+
+def prior_noise(generator, shape):
+    """Standard-normal prior noise of ``shape``, drawn on the CPU from
+    ``generator``, so the card and the CPU sample the same latents."""
+    return torch.randn(shape, generator=generator)
+
+
+def load_checkpoint(model, path):
+    """Load a checkpoint written by the port's ``train_traffic`` into
+    ``model``; :return: (opt_state or None, epoch, min_val_loss)."""
+    params, opt_state, epoch, min_val_loss = load_state(path)
+    model.load_state_dict(params)
+    return opt_state, epoch, min_val_loss
+
+
+def check_viz_and_data(cfg):
+    """Raise ``NotImplementedError`` on rendering and on real data (P10)."""
+    if getattr(cfg, "viz", False):
+        raise NotImplementedError("--viz: rendering (viz.py) is P10's")
+    if cfg.data_version != "synthetic":
+        raise NotImplementedError(
+            f"--data_version {cfg.data_version}: the nuScenes ETL is P10's")

@@ -27,6 +27,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIBS = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel of this package failed to build or to launch. A subclass of
+    ``RuntimeError``, so callers that catch that still do; the trainer,
+    which skips a batch on other runtime errors, re-raises this one."""
+
+
 def _nvcc():
     found = shutil.which("nvcc")
     if found:
@@ -35,7 +41,7 @@ def _nvcc():
         or "/usr/local/cuda"
     path = os.path.join(home, "bin", "nvcc")
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+        raise KernelError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
     return path
 
 
@@ -70,7 +76,7 @@ def build(names):
             else:
                 os.replace(tmp, todo[n])
         if failed:
-            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+            raise KernelError("nvcc failed for " + "\n".join(failed))
     return paths
 
 

@@ -1,18 +1,25 @@
 """Shared pieces of the ctypes kernel wrappers.
 
 :class:`Library` binds the plain C entry points of one ``csrc/<name>.cu``
-(built at the first launch, never at import) and raises when a launch
-returns a CUDA error; :func:`check` is the input check every wrapper runs
-before it launches.
+(built at the first launch, never at import) and raises ``KernelError``
+when a launch returns a CUDA error; :func:`check` is the input check every
+wrapper runs before it launches; :func:`is_device_fault` tells such an
+error, or one of CUDA itself, from other runtime errors.
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
 
 import torch
 
 from . import build
+from .build import KernelError
+
+# what torch's own CUDA, cuDNN and cuBLAS failures say
+_CUDA_MESSAGE = re.compile(r"CUDA error|cuDNN error|"
+                           r"CUBLAS_STATUS|CUDA out of memory")
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
@@ -65,9 +72,18 @@ class Library:
         err = getattr(lib, fn)(*args)
         if err != 0:
             msg = lib.strive_cuda_error(err).decode()
-            raise RuntimeError(f"{fn} launch failed: cudaError {err} ({msg})")
+            raise KernelError(f"{fn} launch failed: cudaError {err} ({msg})")
 
 
 def stream(device):
     """The current CUDA stream of ``device`` as the C entry points take it."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def is_device_fault(err):
+    """True for an error of a kernel of this package or of its build, and
+    for one of CUDA itself (torch's ``AcceleratorError``, a CUDA
+    out-of-memory error, or a CUDA, cuDNN or cuBLAS failure)."""
+    kinds = (KernelError, torch.cuda.OutOfMemoryError,
+             getattr(torch, "AcceleratorError", KernelError))
+    return isinstance(err, kinds) or bool(_CUDA_MESSAGE.search(str(err)))

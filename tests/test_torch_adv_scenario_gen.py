@@ -110,7 +110,7 @@ def runs(request, tmp_path_factory):
         mp.setattr(jgen, "init_model_params", capture)
         jstats = jgen.main(["-c", cfg, "--out", jout] + COMMON + jax_extra)
 
-        def jax_weights(model, _cfg):
+        def jax_weights(model):
             model.load_state_dict(params_from_flax(
                 jax.tree_util.tree_map(np.asarray, params["flax"])))
 

@@ -57,7 +57,7 @@ def runs(tmp_path_factory):
         mp.setattr(jgen, "compute_adv_gen_success", _always)
         jstats = jgen.main(["-c", CFG, "--out", jout] + COMMON)
 
-        def jax_weights(model, _cfg):
+        def jax_weights(model):
             model.load_state_dict(params_from_flax(
                 jax.tree_util.tree_map(np.asarray, params["flax"])))
 

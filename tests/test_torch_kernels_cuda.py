@@ -165,6 +165,30 @@ def test_footprint_solution_shape_matches_plain(dev):
     kc.coll_point_error(args)
 
 
+@pytest.mark.parametrize("B", [8, 10])
+def test_map_crop_decode_step_matches_plain(dev, B):
+    """K1 at a decode step of training (B=8 x 16 agents = 128 poses) and
+    of refine (B=10: 160 poses), 256 px, on the full-width store."""
+    args = kc.decode_crop_args(dev, B)
+    assert args[2].shape == (16 * B, 4)
+    got = crop_kernel.map_crop(*args)
+    ref = crop_kernel.map_crop_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def test_footprint_refine_and_training_shapes_match_plain(dev):
+    """K2 at the refine loss's shape (B=10 x 16 agents x 48 interpolated
+    poses = 7,680 cars) and the training loss's (the ego's 12 poses x B=8
+    = 96 cars)."""
+    _, args = kc.refine_k2(dev)
+    assert args[2].shape == (7680, 4)
+    kc.coll_point_error(args)
+    _, args = kc.training_k2(dev)
+    assert args[2].shape == (96, 4)
+    kc.coll_point_error(args)
+
+
 def test_cuda_dispatch_launches_the_kernels(dev, store):
     rng = np.random.default_rng(4)
     pos = torch.from_numpy(_poses(rng, 4, 150.0, 360.0)).to(dev)

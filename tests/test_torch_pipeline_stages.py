@@ -588,7 +588,7 @@ def test_config_reader_raises_outside_the_subset(tmp_path, line):
 # ---- the entry point's refusals -----------------------------------------------
 
 @pytest.mark.parametrize("extra,exc", [
-    (["--ckpt", "x"], NotImplementedError),
+    (["--data_version", "trainval"], NotImplementedError),
     (["--viz"], NotImplementedError),
     (["--mesh_devices", "2"], NotImplementedError),
     (["--bf16"], NotImplementedError),
@@ -649,8 +649,15 @@ def test_scene_dataset_matches():
         assert (a is None) == (b is None), k
         if a is not None:
             np.testing.assert_array_equal(n(a), n(b), err_msg=k)
-    with pytest.raises(NotImplementedError):
-        tds.SceneDataset(scenes, 8, 2, buckets=(4, 8), device="cpu")
+    # NA buckets: every scene keeps its agents up to the largest bucket
+    want = jds.SceneDataset(scenes, 8, 2, buckets=(4, 8)).get_batch([2, 1],
+                                                                   na=8)
+    got = tds.SceneDataset(scenes, 8, 2, buckets=(4, 8),
+                           device="cpu").get_batch([2, 1], na=8)
+    for k in got.__dataclass_fields__:
+        a, b = getattr(got, k), getattr(want, k)
+        if a is not None:
+            np.testing.assert_array_equal(n(a), n(b), err_msg=k)
 
 
 @pytest.mark.parametrize("split", ["val", "train"])
