@@ -48,8 +48,8 @@ widths (phases 10 and 11). Phases:
       warm-up: finite losses, trajectories and latents, the counters risen
       by exactly 1 + 12 x 20 + 12 crops and 20 + 1 footprints (no window
       or bisect kernel); it/s, then the planner's ms per call and share of
-      wall time in a second run with each call fenced by
-      ``torch.cuda.synchronize()``;
+      wall time in a second run of ``CL_FENCED_ITERS`` (5) iterations with
+      each call fenced by ``torch.cuda.synchronize()``;
    d. the same on the device backend, plus the planner's kernels and
       device busy ms per call (``torch.profiler`` over one call);
 9. (run after 6b, before 7) the scenario-generation pipeline through the
@@ -125,11 +125,49 @@ widths (phases 10 and 11). Phases:
       steady-state ms a step (the median after the first), scenes/s,
       ``torch.cuda.max_memory_allocated`` and the device's busy share over
       two train steps (``torch.profiler``);
-   c. ``test_traffic`` with ``configs/test_synth_prod.cfg``'s flags (viz
-      off, 16 scenes) and the refine entry point (5 iterations), both
-      reading b's ``latest_model`` through ``--ckpt``: every metric finite,
-      the stats of c above, test_traffic's K1 launches exact (2 (1 + FT) +
-      1 + the sample length a batch, no K2);
+   c. ``test_traffic`` with ``configs/test_synth_prod.cfg``'s flags (its
+      viz line dropped where matplotlib is missing, 16 scenes) and the
+      refine entry point (5 iterations), both reading b's ``latest_model``
+      through ``--ckpt``: every metric finite, the stats of c above,
+      test_traffic's K1 launches exact (2 (1 + FT) + 1 + the sample length
+      a batch, no K2);
+12. (run after 11, before 7) nuScenes' data format at its scale, then the
+   tools:
+   a. an ETL directory written under the temporary directory (removed at
+      the end) by ``data.synthetic_etl.write_synthetic_etl`` through the
+      preprocessing's own ``rasterize_maps`` and ``finalize_scene_states``:
+      the four maps at nuScenes' extents at 4 px/m (4 x 4 x 14,748 x
+      12,914 uint8, each map's dx = extent / round(extent x 4), Singapore
+      flipped, synthetic roads over the whole extent), 850 scene names of
+      40 frames with 10-40 agents and NaN gaps, lane graphs, meta.json
+      (plain ``np.savez``); loaded through ``load_environment`` with
+      ``configs/train_traffic.cfg`` (trainval): the store's shape and
+      per-map dx as worked out, its bytes on the card and the load seconds;
+   b. K1 (both layouts) bit-exact and K2 within phase 4's tolerance on
+      that store, at poses inside every map, at its true edges, in the
+      zero padding of the smaller maps and off the stack
+      (``kernel_cases.nusc_pose_cases``); each timed at the launch shapes
+      of c (a decode step of 4 x 16 poses; the ego prior's 48 cars) and d
+      (a sampling step of 20 x 16 poses; the adversarial loss's 16 x 36
+      cars) beside its plain version and bound; the device's busy share
+      over two train steps on the data;
+   c. ``train_traffic -c configs/train_traffic.cfg`` on it for 5 train and
+      2 val batches of one epoch: finite metrics, K1 1 + 2 FT and K2 1
+      launch a step exactly, ms a step and peak memory;
+   d. ``adv_scenario_gen -c configs/adv_gen_rule_based.cfg`` without its
+      ``ckpt`` line (and its ``viz`` line where matplotlib is missing, as
+      this prints), 10 iterations, the entry point stopped after its
+      first optimized batch (``max_batches=1``; one scene, screened from
+      the first 16 candidates), the host rule planner on the ETL lane
+      graphs: K1/K2 launches as worked out from the stages,
+      the JSONs' schema, each stage's seconds and candidate scenes an hour;
+   e. ``eval_planner -c configs/eval_planner.cfg`` on d's JSONs (and the
+      regular scenes among the first 40 that the config's filter keeps),
+      ``cluster_scenarios`` (k = 4) over the tracked
+      ``out/adv_gen_synth_hc_prod`` JSONs and d's, and ``eval_adv_gen
+      --eval_quant`` with that clustering, each on the card and on the
+      CPU: the CSVs within 1e-5 (flags and labels exact), the same
+      k-means labels;
 7. the window kernels of the gather probes, K3 ``window_crop_tiles``, K4a
    ``window_extract`` and K4b ``window_take``: each against its plain
    version at the probe scripts' shapes and on edge cases (windows at the
@@ -157,14 +195,15 @@ widths (phases 10 and 11). Phases:
    (``probes.mosaic_bisect.run``) with the K5 counters set to 0: every
    variant correct, and the counters equal to the launches worked out from
    ``REPS`` and each variant's kernel;
-12. prints the probes' and the variants' JSON lines, the ``closed_loop``
+13. prints the probes' and the variants' JSON lines, the ``closed_loop``
    JSON line (B, NA, FT, iters; it/s, planner ms per call and share for
    each backend; the device planner's kernels per call; the parity
    numbers of a; the card), the ``pipeline`` JSON line (phase 9: per-stage
    wall seconds and calls, sampling seconds a candidate, candidate scenes
    an hour for the batch, the K1/K2 launches, b's largest differences, the
    cuts in ``reduced``, the card), the ``refine`` and ``training`` JSON
-   lines (phases 10 and 11), the ``kernels`` JSON line, the main path's it/s
+   lines (phases 10 and 11), the ``nuscenes`` JSON line (phase 12), the
+   ``kernels`` JSON line, the main path's it/s
    beside the card's name and power limit, and last the device JSON line.
    Each kernel's ``path`` names the path its ``launches`` were counted on:
    the open-loop main path for K1 and K2, the gather-probe path for K3 and
@@ -174,7 +213,9 @@ widths (phases 10 and 11). Phases:
    ``pipeline_launches`` their counts in phase 9c and ``pipeline_shape``
    their phase-9a timings; ``refine_shape`` and ``training_shape`` their
    phase-10a timings, ``refine_launches`` their counts in 10c's Adam run
-   and ``training_launches_per_step`` theirs in 11b.
+   and ``training_launches_per_step`` theirs in 11b; ``nusc_train_shape``
+   and ``nusc_adv_shape`` their phase-12b timings, ``nusc_train_launches``
+   and ``nusc_adv_launches`` their counts in 12c and 12d.
 
 Any failure raises, and the script exits non-zero.
 """
@@ -742,6 +783,9 @@ def bisect_phase(torch, rates, card):
 
 
 CL_DT = 0.5  # the scenes' step (s): the planner's observation spacing
+# iterations of the run with each planner call fenced by synchronize (the
+# closed loop's ms a call and share): fewer than ITERS, for the time limit
+CL_FENCED_ITERS = 5
 CL_MAPS = ("map0", "map1")  # the store's maps, by map_idx
 SMALL_KW = dict(map_bounds=(-4.0, -8.0, 12.0, 8.0), conv_kernels=(5, 3, 3),
                 conv_strides=(2, 2, 2), conv_filters=(8, 8, 16), FT=3)
@@ -956,15 +1000,16 @@ def closed_loop_phase(torch, np, tm, model, scene, store, norm, counters):
 
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run_optim(run_adv_gen_optim, model, scene, store, emb, ITERS,
-                  planner_rollout_fn=fenced)
+        run_optim(run_adv_gen_optim, model, scene, store, emb,
+                  CL_FENCED_ITERS, planner_rollout_fn=fenced)
         torch.cuda.synchronize()
         fenced_wall = time.perf_counter() - t0
         entry = {"iters_per_sec": ITERS / wall,
                  "planner_calls": len(times),
                  "planner_ms_per_call": 1e3 * sum(times) / len(times),
                  "planner_share": sum(times) / fenced_wall,
-                 "fenced_iters_per_sec": ITERS / fenced_wall}
+                 "fenced_iters": CL_FENCED_ITERS,
+                 "fenced_iters_per_sec": CL_FENCED_ITERS / fenced_wall}
         if backend == "device":
             entry.update(planner_profile(torch, card_fn, result))
         out[backend] = entry
@@ -1557,6 +1602,7 @@ def training_phase(torch, np, tm, norm, card, counters, kernels, refine_cfg):
     from strive_tpu_torch.scripts import test_traffic as tt
     from strive_tpu_torch.scripts import train_traffic as trt
     from strive_tpu_torch.train import Trainer
+    from strive_tpu_torch.viz import have_matplotlib
 
     line = {"training": TRAIN_CFG, "card": card}
     cats = ("car", "truck")
@@ -1684,7 +1730,9 @@ def training_phase(torch, np, tm, norm, card, counters, kernels, refine_cfg):
     log(f"11b. train_traffic at full width: {line['b']}")
 
     # --- c. test_traffic and refine through --ckpt ------------------------
-    tcfg = cfg_copy(TEST_CFG, {"ckpt", "test_sample_viz_multi"},
+    viz = have_matplotlib()
+    tcfg = cfg_copy(TEST_CFG, {"ckpt"} if viz else {"ckpt",
+                                                    "test_sample_viz_multi"},
                     "test_synth_prod.cfg")
     argv = ["-c", tcfg, "--ckpt", ckpt, "--synth_scenes", str(TEST_SCENES),
             "--device", DEV, "--out", os.path.join(ROOT, "build",
@@ -1720,11 +1768,430 @@ def training_phase(torch, np, tm, norm, card, counters, kernels, refine_cfg):
                  "test_launches": {k: launches[k] for k in (
                      "map_crop", "footprint_coll_point")},
                  "test_reduced": {"synth_scenes": f"96 -> {TEST_SCENES}",
-                                  "test_sample_viz_multi": "off (P10)"},
+                                  "test_sample_viz_multi":
+                                      "on" if viz else
+                                      "off: no matplotlib on this machine"},
                  "refine_stats": stats,
                  "refine_losses_first_last": [float(losses[0]),
                                               float(losses[-1])]}
     log(f"11c. test_traffic and refine from the checkpoint: {line['c']}")
+    return line
+
+
+NUSC_SCENES, NUSC_FRAMES, NUSC_AGENTS = 850, 40, (10, 40)  # trainval's names
+NUSC_PIX_PER_M = 4.0  # the ETL's resolution
+NUSC_TRAIN_CFG = "configs/train_traffic.cfg"      # 12c
+NUSC_TRAIN_STEPS, NUSC_VAL_STEPS = 5, 2           # of 5,000+ a split
+NUSC_ADV_CFG = "configs/adv_gen_rule_based.cfg"   # 12d
+# 12d screens at most the first NUSC_ADV_SCREEN val windows and stops after
+# the entry point's first optimized batch (B=1)
+NUSC_ADV_SCREEN, NUSC_ADV_ITERS = 16, 10          # of 1,200 and 200
+NUSC_EVAL_CFG = "configs/eval_planner.cfg"        # 12e
+NUSC_EVAL_SCENES = 40  # regular scenes eval_planner reads (of 1,200)
+NUSC_CLUSTER_K = 4
+# per_seq / all_eval / total CSVs, card against CPU: these columns exact,
+# every other number within 1e-5
+EXACT_COLUMNS = {"did_collide", "adv_success", "planner_coll_atk",
+                 "planner_coll_others", "planner_coll_env", "env_coll_atk",
+                 "sol_coll_others", "sol_coll_env", "sol_success",
+                 "cluster_label", "cluster_name", "taxonomy", "count"}
+
+
+def csv_close(np, got_path, want_path, tol=1e-5):
+    """Raise unless two CSVs of the tools agree: the same header, rows and
+    names; flags and labels exact, numbers within ``tol``.
+    :return: the largest difference of a number"""
+    import csv
+
+    with open(got_path) as f:
+        got = list(csv.reader(f))
+    with open(want_path) as f:
+        want = list(csv.reader(f))
+    if got[0] != want[0] or len(got) != len(want):
+        raise AssertionError(f"{got_path}: header or rows differ")
+    worst = 0.0
+    for g, w in zip(got[1:], want[1:]):
+        for col, a, b in zip(got[0], g, w):
+            try:
+                fa, fb = float(a), float(b)
+            except ValueError:
+                fa = fb = None
+            if fa is None or col in EXACT_COLUMNS or g[0] in EXACT_COLUMNS:
+                if a != b:
+                    raise AssertionError(f"{got_path}: {g[0]} {col} {a} "
+                                         f"!= {b}")
+                continue
+            if np.isnan(fa) and np.isnan(fb):
+                continue
+            if not np.isclose(fa, fb, rtol=tol, atol=tol):
+                raise AssertionError(f"{got_path}: {g[0]} {col} {fa} != {fb}")
+            worst = max(worst, abs(fa - fb))
+    return worst
+
+
+def out_dir(prefix):
+    """The ``<prefix>_<unix time>`` directory a tool wrote."""
+    import glob
+
+    (d,) = glob.glob(prefix + "_*")
+    return d
+
+
+def nusc_phase(torch, np, rates, card, counters, kernels, dev):
+    """Phase 12: nuScenes' format and scale, then the tools (module doc),
+    on ``dev`` (the card; the CPU only to rehearse the control flow).
+
+    :return: the ``nuscenes`` JSON line's dict"""
+    import itertools
+    import shutil
+    import tempfile
+
+    from strive_tpu_torch import kernel_cases as kc
+    from strive_tpu_torch.data.loading import load_environment
+    from strive_tpu_torch.data.synthetic_etl import write_synthetic_etl
+    from strive_tpu_torch.maps import crop_kernel, queries
+    from strive_tpu_torch.maps.store import NUSC_MAP_SIZES
+    from strive_tpu_torch.normalize import effective_categories
+    from strive_tpu_torch.scripts import adv_scenario_gen as gen
+    from strive_tpu_torch.scripts import cluster_scenarios as clu
+    from strive_tpu_torch.scripts import common
+    from strive_tpu_torch.scripts import eval_adv_gen as eag
+    from strive_tpu_torch.scripts import eval_planner as evp
+    from strive_tpu_torch.scripts import train_traffic as trt
+    from strive_tpu_torch.train import Trainer
+    from strive_tpu_torch.utils.timing import cuda_ms
+    from strive_tpu_torch.viz import have_matplotlib
+
+    build_dir = os.path.join(ROOT, "build", "chip_smoke", "nusc")
+    shutil.rmtree(build_dir, ignore_errors=True)
+    os.makedirs(build_dir)
+    line = {"nuscenes": "synthetic content in the ETL format at nuScenes' "
+                        "extents", "card": card, "seconds": {}}
+    data_dir = tempfile.mkdtemp(prefix="strive_nusc_etl_")
+    try:
+        # --- a. write and load the ETL directory --------------------------
+        t0 = time.perf_counter()
+        etl_dir = write_synthetic_etl(
+            data_dir, version="trainval", num_scenes=NUSC_SCENES,
+            pix_per_m=NUSC_PIX_PER_M, frames=NUSC_FRAMES, agents=NUSC_AGENTS,
+            device=dev)
+        line["seconds"]["a_write"] = time.perf_counter() - t0
+        tcfg = trt.parse_cfg(["-c", os.path.join(ROOT, NUSC_TRAIN_CFG),
+                              "--data_dir", data_dir])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ds, store, lgs, sn, an = load_environment(tcfg, "train",
+                                                  load_lanegraph=True,
+                                                  device=dev)
+        torch.cuda.synchronize()
+        line["seconds"]["a_load"] = time.perf_counter() - t0
+        dx = store.dx.cpu().numpy()
+        px = np.round(np.array([NUSC_MAP_SIZES[m] for m in store.map_names])
+                      * NUSC_PIX_PER_M)
+        want_dx = (np.array([NUSC_MAP_SIZES[m] for m in store.map_names])
+                   / px).astype(np.float32)
+        want_shape = (4, 4) + tuple(int(v) for v in px.max(0))
+        if store.raster.shape != want_shape or not np.array_equal(
+                dx, want_dx) or sorted(lgs) != sorted(store.map_names):
+            raise AssertionError(f"12a. store {tuple(store.raster.shape)}, "
+                                 f"dx {dx.tolist()}, lane graphs {sorted(lgs)}")
+        store_bytes = (store.raster.numel() + store.packed.numel()
+                       + store.dx.numel() * 4)
+        files = {f: os.path.getsize(os.path.join(etl_dir, f))
+                 for f in sorted(os.listdir(etl_dir))}
+        line["a"] = {"etl_files_bytes": files, "scenes": NUSC_SCENES,
+                     "frames": NUSC_FRAMES, "agents": list(NUSC_AGENTS),
+                     "raster": list(store.raster.shape),
+                     "dx": dx.tolist(), "store_bytes_on_device": store_bytes,
+                     "train_windows": len(ds),
+                     "lane_vertices": {m: len(lg["xy"])
+                                       for m, lg in lgs.items()}}
+        log(f"12a. ETL directory written in {line['seconds']['a_write']:.1f}"
+            f" s ({files}); loaded in {line['seconds']['a_load']:.1f} s: "
+            f"{store_bytes / 1e9:.2f} GB on the card, {len(ds)} train "
+            f"windows, dx {dx.tolist()}")
+
+        # --- b. K1 and K2 on this store ----------------------------------
+        t0 = time.perf_counter()
+        cases = kc.nusc_pose_cases(store)
+        k1_nhwc, k1_nchw, k2 = kc.nusc_kernel_args(store, cases)
+        for args in (k1_nhwc, k1_nchw):
+            got = crop_kernel.map_crop(*args)
+            want = crop_kernel.map_crop_plain(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"12b. map_crop differs from plain on "
+                                     f"the nuScenes store ({args[-1]}): "
+                                     f"{int((got != want).sum())} values")
+            del got, want
+        k2_err = kc.coll_point_error(k2)
+        n_cases = {k: int(len(v[1])) for k, v in cases.items()}
+        # the launch shapes of c and d, from their data
+        vcfg = gen.parse_cfg(["-c", os.path.join(ROOT, NUSC_ADV_CFG),
+                              "--data_dir", data_dir])
+        train_b = ds.get_batch(list(range(tcfg.batch_size)))
+        pos_all = sn.unnormalize(train_b.past_gt[:, :, -1, :4]).reshape(-1, 4)
+        lo, wo = queries.crop_offsets(tcfg.map_obs_bounds,
+                                      tcfg.map_obs_size_pix,
+                                      tcfg.map_obs_size_pix, dev)
+        train_k1 = (store.packed, store.dx, pos_all.contiguous(),
+                    train_b.map_idx.repeat_interleave(train_b.NA), lo, wo,
+                    store.C, "nhwc")
+        ego = sn.unnormalize(train_b.future_gt[:, 0, :, :4]).reshape(-1, 4)
+        ego_lw = an.unnormalize(train_b.lw[:, 0])[:, None].expand(
+            train_b.B, train_b.FT, 2).reshape(-1, 2)
+        gl, gw = queries.COLL_POINT_GRID
+        grid = (queries.linspace(-1.0, 1.0, gl, dev),
+                queries.linspace(-1.0, 1.0, gw, dev), 0)
+        train_k2 = (store.packed, store.dx, ego.contiguous(),
+                    ego_lw.contiguous(),
+                    train_b.map_idx.repeat_interleave(train_b.FT), *grid)
+        one = ds.get_batch([0])
+        p1 = sn.unnormalize(one.past_gt[0, :, -1, :4])             # (NA, 4)
+        rng = np.random.default_rng(0)
+        samp = p1.repeat(vcfg.num_samples, 1).clone()
+        samp[:, :2] += torch.as_tensor(rng.normal(0, 2.0, (len(samp), 2)),
+                                       dtype=torch.float32, device=dev)
+        adv_k1 = (store.packed, store.dx, samp.contiguous(),
+                  one.map_idx.repeat_interleave(len(samp)), lo, wo, store.C,
+                  "nhwc")
+        stats = (torch.as_tensor(sn.mean_np[:4], device=dev),
+                 torch.as_tensor(sn.std_np[:4], device=dev),
+                 torch.as_tensor(an.mean_np, device=dev),
+                 torch.as_tensor(an.std_np, device=dev))
+        adv_k2 = kc.main_path_coll_point_args(store, one, *stats)
+        shapes = [
+            ("map_crop", "nusc_train_shape", "12c, a decode step of "
+             f"train_traffic.cfg: B={train_b.B} x {train_b.NA} agents = "
+             f"{len(pos_all)} poses, 256 px", train_k1, crop_work),
+            ("map_crop", "nusc_adv_shape", "12d, a sampling step of "
+             f"adv_gen_rule_based.cfg: 1 scene x {vcfg.num_samples} samples "
+             f"x {one.NA} agents = {len(samp)} poses, 256 px", adv_k1,
+             crop_work),
+            ("footprint_coll_point", "nusc_train_shape", "12c, the training "
+             f"loss's ego prior: B={train_b.B} x {train_b.FT} poses = "
+             f"{len(ego)} cars", train_k2, footprint_work),
+            ("footprint_coll_point", "nusc_adv_shape", "12d, the adversarial "
+             f"loss: 1 scene x {one.NA} agents x {3 * one.FT} interpolated "
+             f"poses = {adv_k2[2].shape[0]} cars", adv_k2, footprint_work),
+        ]
+        for name, key, what, args, work in shapes:
+            kern = getattr(crop_kernel, name)
+            plain = getattr(crop_kernel, f"{name}_plain")
+            if name == "map_crop":
+                got, want = kern(*args), plain(*args)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"12b. map_crop at {what} differs")
+                err = 0.0
+                del got, want
+            else:
+                err = kc.coll_point_error(args)
+            entry = {"shape": what, "max_abs_err": err,
+                     "ms": cuda_ms(lambda: kern(*args), 200),
+                     "plain_ms": cuda_ms(lambda: plain(*args), 10)}
+            entry["bound_ms"], entry["bound_by"] = bound_ms(
+                rates, *work(torch, queries, args))
+            kernels[name][key] = entry
+            log(f"12b. {name} at {what}: {entry['ms']:.4f} ms (plain "
+                f"{entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} "
+                f"ms by {entry['bound_by']})")
+        line["b"] = {"cases": n_cases, "map_crop": "bit-exact, both layouts",
+                     "footprint_coll_point_max_abs_err": k2_err}
+        log(f"12b. map_crop bit-exact and footprint_coll_point within "
+            f"tolerance (coll_pt {k2_err:.3g}) on {n_cases} poses of the "
+            f"nuScenes store")
+
+        line["seconds"]["b_kernels"] = time.perf_counter() - t0
+
+        # the device's busy share over two train steps on this data
+        t0 = time.perf_counter()
+        nc = len(effective_categories(tcfg.agent_types, tcfg.reduce_cats))
+        model = common.build_model(tcfg, sn, an, nc, "cpu")
+        common.init_params(model)
+        model.to(dev)
+        trainer = Trainer(model, TRAIN_W, sn, an, lr=tcfg.lr)
+        trainer.run_epoch([train_b], store, 0.0)  # warm-up
+        prof = busy_share(torch, lambda: trainer.run_epoch(
+            [train_b, train_b], store, 0.0))
+        del trainer, model, ds, store, train_b, one, args, shapes
+        del train_k1, train_k2, adv_k1, adv_k2, k1_nhwc, k1_nchw, k2
+        torch.cuda.empty_cache()
+        line["seconds"]["b_busy"] = time.perf_counter() - t0
+
+        # --- c. train_traffic on it ---------------------------------------
+        out = os.path.join(build_dir, "train")
+        argv = ["-c", os.path.join(ROOT, NUSC_TRAIN_CFG), "--data_dir",
+                data_dir, "--epochs", "1", "--device", dev.type, "--out", out]
+        iterate = trt.batch_iterator
+
+        def cut(ds_, batch_size, shuffle=True, seed=0):
+            n = NUSC_TRAIN_STEPS if shuffle else NUSC_VAL_STEPS
+            return itertools.islice(iterate(ds_, batch_size, shuffle=shuffle,
+                                            seed=seed), n)
+
+        timings = {}
+        torch.cuda.reset_peak_memory_stats()
+        zero(counters)
+        trt.batch_iterator = cut
+        t0 = time.perf_counter()
+        try:
+            quiet(trt.main, argv, timings)
+        finally:
+            trt.batch_iterator = iterate
+        line["seconds"]["c"] = time.perf_counter() - t0
+        launches = counted(counters)
+        steps = len(timings["train_steps"]) + NUSC_VAL_STEPS
+        expected = dict.fromkeys(launches, 0)
+        expected["map_crop"] = steps * (1 + 2 * tcfg.future_len)
+        expected["footprint_coll_point"] = steps
+        if launches != expected or len(timings["train_steps"]) != \
+                NUSC_TRAIN_STEPS:
+            raise AssertionError(f"12c. launches {launches}, expected "
+                                 f"{expected}")
+        mets = (timings["train"][0], timings["val"][0])
+        if not all(np.isfinite(v) for m_ in mets for v in m_.values()):
+            raise AssertionError(f"12c. metrics {mets}")
+        steady = sorted(timings["train_steps"][1:])
+        step_s = steady[len(steady) // 2]
+        line["c"] = {
+            "config": NUSC_TRAIN_CFG, "B": tcfg.batch_size,
+            "NA": tcfg.max_agents, "FT": tcfg.future_len,
+            "train_steps": NUSC_TRAIN_STEPS, "val_steps": NUSC_VAL_STEPS,
+            "step_seconds": timings["train_steps"],
+            "steady_ms_per_step": 1e3 * step_s,
+            "scenes_per_second": tcfg.batch_size / step_s,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "profile_two_steps": prof, "train": mets[0], "val": mets[1],
+            "launches": {k: launches[k] for k in ("map_crop",
+                                                  "footprint_coll_point")},
+            "reduced": {"epochs": "200 -> 1",
+                        "steps": f"{NUSC_TRAIN_STEPS} train and "
+                                 f"{NUSC_VAL_STEPS} val batches of the "
+                                 "epoch's"}}
+        for name in ("map_crop", "footprint_coll_point"):
+            kernels[name]["nusc_train_launches"] = launches[name]
+        log(f"12c. train_traffic on the ETL data: {line['c']}")
+
+        # --- d. adv_scenario_gen on it ------------------------------------
+        drop = {"ckpt"} if have_matplotlib() else {"ckpt", "viz"}
+        if "viz" in drop:
+            log("12d. matplotlib is not installed on this machine: "
+                f"{NUSC_ADV_CFG} runs without its viz line")
+        cfg = cfg_copy(NUSC_ADV_CFG, drop, "nusc_adv_gen.cfg")
+        adv_out = os.path.join(build_dir, "adv")
+        argv = ["-c", cfg, "--data_dir", data_dir, "--num_iters",
+                str(NUSC_ADV_ITERS), "--max_scenes", str(NUSC_ADV_SCREEN),
+                "--device", dev.type, "--out", adv_out]
+        pc = gen.parse_cfg(argv)
+        timings = {}
+        zero(counters)
+        t0 = time.perf_counter()
+        stats = quiet(gen.main, argv, timings, max_batches=1)
+        line["seconds"]["d"] = time.perf_counter() - t0
+        launches = counted(counters)
+        calls = timings["calls"]
+        FTp, SFL, it = pc.future_len, pc.sol_future_len, pc.num_iters
+        expected = dict.fromkeys(launches, 0)
+        expected["map_crop"] = (
+            calls.get("sample", 0) * (1 + FTp)
+            + calls.get("init_fit", 0) * (1 + (gen.INIT_FIT_ITERS + 1) * FTp)
+            + calls.get("planner_refit", 0)
+            * (gen.PLANNER_REFIT_ITERS + 1) * FTp
+            + calls.get("adversarial", 0) * (it + 1) * FTp
+            + calls.get("solution", 0) * (it * SFL + FTp))
+        expected["footprint_coll_point"] = (
+            calls.get("adversarial", 0) * (it + 1)
+            + calls.get("solution", 0) * it)
+        if launches != expected:
+            raise AssertionError(f"12d. launches {launches}, expected "
+                                 f"{expected} from the stages {calls}")
+        jsons = scenario_jsons(np, adv_out)
+        n_json = sum(len(v) for v in jsons.values())
+        if n_json != sum(b for _, b, _ in timings["batches"]) or not n_json:
+            raise AssertionError(f"12d. {n_json} scenario files for batches "
+                                 f"{timings['batches']}")
+        if len(timings["batches"]) != 1:
+            raise AssertionError(f"12d. batches {timings['batches']}, "
+                                 "expected the first one only")
+        batch_secs = sum(t for t, _, _ in timings["batches"])
+        batch_scenes = sum(b for _, b, _ in timings["batches"])
+        line["d"] = {
+            "config": f"{NUSC_ADV_CFG} without its "
+                      f"{' and '.join(sorted(drop))} line"
+                      + ("s" if len(drop) > 1 else ""),
+            "reduced": {"num_iters": f"200 -> {NUSC_ADV_ITERS}",
+                        "candidates": f"1,200 val windows -> "
+                                      f"{stats['candidates']}, up to the "
+                                      "first optimized batch",
+                        "weights": "random, Flax's distributions seeded 0"},
+            "stats": stats, "batches": timings["batches"],
+            "stage_calls": calls, "stage_seconds": timings["seconds"],
+            "final_loss": timings["final_loss"],
+            "candidate_scenes_per_hour": batch_scenes * 3600.0 / batch_secs,
+            "launches": {k: launches[k] for k in ("map_crop",
+                                                  "footprint_coll_point")},
+            "jsons": {k: len(v) for k, v in jsons.items()}}
+        for name in ("map_crop", "footprint_coll_point"):
+            kernels[name]["nusc_adv_launches"] = launches[name]
+        log(f"12d. adv_scenario_gen on the ETL data: {line['d']}")
+
+        # --- e. the tools, card against CPU -------------------------------
+        t0 = time.perf_counter()
+        scen_dir = os.path.join(build_dir, "scenarios")  # all of d's JSONs
+        os.makedirs(scen_dir)
+        for folder in FOLDERS:
+            path = os.path.join(adv_out, "scenario_results", folder)
+            for name in os.listdir(path) if os.path.isdir(path) else []:
+                shutil.copy(os.path.join(path, name), scen_dir)
+        tracked = os.path.join(ROOT, "out", "adv_gen_synth_hc_prod",
+                               "scenario_results")
+        runs = {}
+        for d in (dev.type, "cpu"):
+            o = os.path.join(build_dir, f"tools_{d}_{len(runs)}")
+            quiet(evp.main, ["-c", os.path.join(ROOT, NUSC_EVAL_CFG),
+                             "--data_dir", data_dir, "--scenario_dir",
+                             scen_dir, "--max_scenes", str(NUSC_EVAL_SCENES),
+                             "--device", d, "--out", o + "/eval_planner"])
+            clustering = quiet(clu.main, [
+                "--scenario_dirs", *[os.path.join(tracked, f)
+                                     for f in FOLDERS], scen_dir,
+                "--k", str(NUSC_CLUSTER_K), "--device", d,
+                "--out", o + "/cluster"])
+            cdir = out_dir(o + "/cluster")
+            quiet(eag.main, ["-c", "/dev/null", "--scenario_root",
+                             os.path.join(adv_out, "scenario_results"),
+                             "--eval_quant", "--data_version", "trainval",
+                             "--data_dir", data_dir, "--cluster_pkl",
+                             os.path.join(cdir, "cluster.pkl"),
+                             "--cluster_labels",
+                             os.path.join(cdir, "cluster_labels.txt"),
+                             "--device", d, "--out", o + "/eval_adv_gen"])
+            runs[len(runs)] = (o, clustering)
+        (card_o, card_c), (cpu_o, cpu_c) = runs[0], runs[1]
+        if not (np.array_equal(card_c.labels_, cpu_c.labels_)
+                and np.allclose(card_c.cluster_centers_,
+                                cpu_c.cluster_centers_, rtol=0, atol=1e-5)):
+            raise AssertionError(f"12e. k-means: card {card_c.labels_}, CPU "
+                                 f"{cpu_c.labels_}")
+        diffs = {}
+        for tool, name in (("eval_planner", "all_eval_results.csv"),
+                           ("eval_adv_gen", "per_seq_results.csv"),
+                           ("eval_adv_gen", "total_results.csv")):
+            diffs[name] = csv_close(
+                np, os.path.join(out_dir(f"{card_o}/{tool}"), name),
+                os.path.join(out_dir(f"{cpu_o}/{tool}"), name))
+        line["seconds"]["e"] = time.perf_counter() - t0
+        line["e"] = {"card_vs_cpu_max_diff": diffs,
+                     "cluster_labels": card_c.labels_.tolist(),
+                     "cluster_inertia": [card_c.inertia_, cpu_c.inertia_],
+                     "scenarios": len(os.listdir(scen_dir)),
+                     "regular_scenes": NUSC_EVAL_SCENES}
+        log(f"12e. eval_planner, cluster_scenarios and eval_adv_gen: card "
+            f"and CPU agree ({line['e']})")
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+    line["seconds"]["phase"] = sum(line["seconds"].values())
     return line
 
 
@@ -1941,6 +2408,10 @@ def main():
     del model
     torch.cuda.empty_cache()
 
+    # --- 12. nuScenes' format at its scale, then the tools -----------------
+    nusc = nusc_phase(torch, np, rates, card, counters, kernels, dev)
+    torch.cuda.empty_cache()
+
     # --- 7. K3, K4a, K4b and the gather-probe path -------------------------
     k1_gelem_s = n_pix / (k1_ms * 1e-3) / 1e9
     window_entries, probes = window_phase(torch, rates, card, k1_gelem_s)
@@ -1955,6 +2426,7 @@ def main():
     print(json.dumps(pipeline))
     print(json.dumps(refine_line))
     print(json.dumps(training))
+    print(json.dumps(nusc))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"main_path": "embed + open-loop adv optimization",
                       "B": B, "NA": NA, "FT": FT, "crop_px": MAP_PX,

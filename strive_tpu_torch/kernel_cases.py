@@ -4,8 +4,11 @@
 path's K2 inputs, K1 and K2 at the shapes the scenario-generation pipeline
 gives them (prior sampling, the solution loss) and the refine and training
 paths give them (a decode step of B scenes, the refine loss, the training
-loss's ego prior), the three kernels' edge cases, and the check of K2's
-contract (:func:`coll_point_error`)."""
+loss's ego prior), K1 and K2 on a store of nuScenes' four map extents
+(:func:`nusc_store`, :func:`nusc_pose_cases`: per-map ``dx`` that is not
+0.25, maps of unequal size zero-padded to the largest, Singapore
+flipped), the three kernels' edge cases, and the check of K2's contract
+(:func:`coll_point_error`)."""
 
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import torch
 
 from .geometry import interp_traj
 from .maps import crop_kernel, queries
-from .maps.store import DEFAULT_BOUNDS
+from .maps.store import DEFAULT_BOUNDS, NUSC_MAP_SIZES
 
 
 def main_path_coll_point_args(store, scene, state_mean, state_std, att_mean,
@@ -143,6 +146,105 @@ def training_k2(device, B=8, FT=12):
                    lw.reshape(-1, 2).contiguous(), mapix.contiguous(),
                    queries.linspace(-1.0, 1.0, L, device),
                    queries.linspace(-1.0, 1.0, W, device), 0)
+
+
+def nusc_store(device, pix_per_m=4.0):
+    """The four nuScenes maps at their extents (``NUSC_MAP_SIZES``) with the
+    synthetic content of ``data.synthetic_etl``, rasterized as the ETL does
+    (``rasterize_maps``: 4 channels, Singapore flipped, each map's ``dx`` =
+    extent / round(extent x pix_per_m), zero-padded to the largest): at 4
+    px/m, 4 x 4 x 14,748 x 12,914 uint8 (3.05 GB) and a 0.76 GB packed
+    raster on ``device``."""
+    from .data.synthetic_etl import SPACING_M, SyntheticNuscMap
+    from .maps.store import DEFAULT_LAYERS, MapStore
+    from .scripts.preprocess_nuscenes import rasterize_maps
+
+    maps = {m: SyntheticNuscMap(NUSC_MAP_SIZES[m], SPACING_M)
+            for m in NUSC_MAP_SIZES}
+    raster, dx, names = rasterize_maps(maps, list(DEFAULT_LAYERS), pix_per_m)
+    return MapStore.from_raster(torch.from_numpy(raster).to(device),
+                                torch.from_numpy(dx).to(device), names)
+
+
+def nusc_pose_cases(store, per=8, seed=0):
+    """Poses on every map of a :func:`nusc_store`-like store, as numpy:
+    ``{kind: (pos (P, 4) f32, mapix (P,) i64)}`` with random headings.
+
+    - ``interior``: inside the map's true extent;
+    - ``edge``: within 3 m of the map's true right or top edge, either
+      side of it (for the largest map, of the stacked raster's edge);
+    - ``padding``: beyond the true extent of a map smaller than the
+      stack, inside the stacked raster (zero bytes there);
+    - ``off``: outside the stacked raster on every side.
+    Map m holds extent / ``dx[m]`` pixels along each axis (``dx[m]`` =
+    (H, W) meters per pixel); world x is divided by ``dx[m, 0]`` and y by
+    ``dx[m, 1]``, so its true edge is at those pixel counts times them.
+    """
+    rng = np.random.default_rng(seed)
+    dx = store.dx.detach().cpu().numpy().astype(np.float64)
+    _, H, W = store.packed.shape
+    out = {k: ([], []) for k in ("interior", "edge", "padding", "off")}
+
+    def add(kind, m, xy):
+        out[kind][0].append(xy)
+        out[kind][1].append(np.full(len(xy), m))
+
+    for m, name in enumerate(store.map_names):
+        h_px, w_px = np.round(np.array(NUSC_MAP_SIZES[name]) / dx[m])
+        xe, ye = w_px * dx[m, 0], h_px * dx[m, 1]      # the map's true edge
+        xs, ys = W * dx[m, 0], H * dx[m, 1]            # the stack's edge
+        u = rng.uniform(0.05, 0.95, (per, 2))
+        add("interior", m, u * [xe, ye])
+        near = rng.uniform(-3.0, 3.0, per)
+        edge = np.stack([xe + near, u[:, 1] * ye], 1)
+        edge[per // 2:] = np.stack([u[per // 2:, 0] * xe,
+                                    ye + near[per // 2:]], 1)
+        add("edge", m, edge)
+        if xs - xe > 10.0:
+            add("padding", m, np.stack([rng.uniform(xe + 5, xs - 5, per),
+                                        u[:, 1] * ye], 1))
+        if ys - ye > 10.0:
+            add("padding", m, np.stack([u[:, 0] * xe,
+                                        rng.uniform(ye + 5, ys - 5, per)], 1))
+        off = np.stack([rng.uniform(-50, xs + 50, per),
+                        rng.uniform(-50, ys + 50, per)], 1)
+        side = np.arange(per) % 4
+        off[side == 0, 0] = -rng.uniform(5, 50, (side == 0).sum())
+        off[side == 1, 0] = xs + rng.uniform(5, 50, (side == 1).sum())
+        off[side == 2, 1] = -rng.uniform(5, 50, (side == 2).sum())
+        off[side == 3, 1] = ys + rng.uniform(5, 50, (side == 3).sum())
+        add("off", m, off)
+    cases = {}
+    for kind, (xys, maps) in out.items():
+        xy = np.concatenate(xys)
+        th = rng.uniform(-np.pi, np.pi, len(xy))
+        pos = np.concatenate([xy, np.stack([np.cos(th), np.sin(th)], 1)], 1)
+        cases[kind] = (pos.astype(np.float32),
+                       np.concatenate(maps).astype(np.int64))
+    return cases
+
+
+def nusc_kernel_args(store, cases, L=256, seed=0):
+    """K1's arguments (both layouts, 4 channels, ``L`` px with the default
+    bounds) and K2's (the 39x16 grid, bit 0, car sizes from 3 to 12 m)
+    over every pose of :func:`nusc_pose_cases`:
+    ``(k1_nhwc, k1_nchw, k2)``."""
+    dev = store.packed.device
+    pos = torch.from_numpy(np.concatenate([c[0] for c in cases.values()]))
+    mapix = torch.from_numpy(np.concatenate([c[1] for c in cases.values()]))
+    pos, mapix = pos.to(dev), mapix.to(dev)
+    lo, wo = queries.crop_offsets(DEFAULT_BOUNDS, L, L, dev)
+    k1 = (store.packed, store.dx, pos, mapix, lo, wo, 4)
+    rng = np.random.default_rng(seed)
+    P = pos.shape[0]
+    lw = torch.from_numpy(np.stack([rng.uniform(3, 12, P),
+                                    rng.uniform(1.5, 3, P)], 1)
+                          .astype(np.float32)).to(dev)
+    gl, gw = queries.COLL_POINT_GRID
+    k2 = (store.packed, store.dx, pos, lw, mapix,
+          queries.linspace(-1.0, 1.0, gl, dev),
+          queries.linspace(-1.0, 1.0, gw, dev), 0)
+    return (*k1, "nhwc"), (*k1, "nchw"), k2
 
 
 def coll_point_cases(size_px, pix_per_m=4.0, seed=0):

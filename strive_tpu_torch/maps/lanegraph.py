@@ -1,9 +1,8 @@
-"""Synthetic lane graphs for the rule-based planners.
+"""Lane graphs for the rule-based planners: nuScenes extraction (the
+devkit imported inside it) and synthetic grids.
 
-Copy of the synthetic part of ``strive_tpu/maps/lanegraph.py``
-(``_build_edges`` and the builders at :96-228); the nuScenes extraction is
-not ported. Format (reference ``nuscenes_utils.py:50-122``
-process_lanegraph):
+Copy of ``strive_tpu/maps/lanegraph.py``. Format (reference
+``nuscenes_utils.py:50-122`` process_lanegraph):
 ``{'xy': (L, 2), 'in_edges': list[list[int]], 'out_edges': list[list[int]],
    'edges': (m, 5) = (x0, y0, hcos, hsin, len), 'edgeixes': (m, 2)}``
 """
@@ -30,6 +29,69 @@ def _build_edges(xys, out_edges, eps=1e-6):
             edges.append([x0, y0, d[0], d[1], dist])
             edgeixes.append([i, e])
     return (np.array(edges), np.array(edgeixes, dtype=np.int64), ee2ix)
+
+
+def process_nuscenes_lanegraph(nmap, res_meters=1.0, eps=1e-6):
+    """Discretize a NuScenesMap's lanes into the graph format.
+
+    Requires nuscenes-devkit; mirrors reference
+    ``nuscenes_utils.py:50-104`` (1m discretization, duplicate removal,
+    connector stitching).
+    """
+    from nuscenes.map_expansion.arcline_path_utils import discretize_lane
+
+    lane_pts = {}
+    for lane in nmap.lane + nmap.lane_connector:
+        my_lane = nmap.arcline_path_3.get(lane["token"], [])
+        pts = np.array(discretize_lane(my_lane, res_meters))[:, :2]
+        # drop consecutive duplicates (keep >= 2 pts invariant)
+        d = np.linalg.norm(pts[1:] - pts[:-1], axis=1)
+        keep = np.ones(len(pts), bool)
+        keep[:-1] = d > eps
+        lane_pts[lane["token"]] = pts[keep]
+
+    for intok, conn in nmap.connectivity.items():
+        for outtok in conn["outgoing"]:
+            if outtok in lane_pts and intok in lane_pts:
+                if np.linalg.norm(lane_pts[outtok][0] - lane_pts[intok][-1]) <= eps:
+                    lane_pts[intok] = lane_pts[intok][:-1]
+
+    xys = []
+    start = {}
+    for lid, pts in lane_pts.items():
+        start[lid] = len(xys)
+        xys.extend(pts.tolist())
+    in_edges = [[] for _ in xys]
+    out_edges = [[] for _ in xys]
+    for lid, pts in lane_pts.items():
+        s = start[lid]
+        for ix in range(len(pts) - 1):
+            out_edges[s + ix].append(s + ix + 1)
+            in_edges[s + ix + 1].append(s + ix)
+        for outtok in nmap.connectivity[lid]["outgoing"]:
+            if outtok in lane_pts:
+                out_edges[s + len(pts) - 1].append(start[outtok])
+        for intok in nmap.connectivity[lid]["incoming"]:
+            if intok in lane_pts:
+                in_edges[s].append(start[intok] + len(lane_pts[intok]) - 1)
+
+    edges, edgeixes, _ = _build_edges(xys, out_edges, eps)
+    return {"xy": np.array(xys), "in_edges": in_edges,
+            "out_edges": out_edges, "edges": edges, "edgeixes": edgeixes}
+
+
+def flip_lanegraph_x(lg, map_height_m):
+    """Flip about the x axis (Singapore right-hand-drive conversion,
+    reference ``map_env.py:131-144``)."""
+    lg = dict(lg)
+    xy = lg["xy"].copy()
+    xy[:, 1] = map_height_m - xy[:, 1]
+    lg["xy"] = xy
+    edges = lg["edges"].copy()
+    edges[:, 1] = map_height_m - edges[:, 1]
+    edges[:, 3] *= -1
+    lg["edges"] = edges
+    return lg
 
 
 def synthetic_lanegraph(extent_m=128.0, spacing_m=32.0, res_m=2.0):

@@ -4,7 +4,9 @@ Port of ``strive_tpu/maps/store.py``: ``raster (M, C, H, W)`` uint8 on the
 device, the per-map meters-per-pixel table ``dx (M, 2)``, and the
 bit-packed raster ``packed (M, H, W)`` (bit c = channel c) that the crop
 and footprint kernels read. Unlike the TPU store, ``packed`` carries no
-block-alignment padding: the CUDA kernels gather bytes directly.
+block-alignment padding: the CUDA kernels gather bytes directly. The
+nuScenes maps (``NUSC_MAP_SIZES``) are stacked zero-padded to the largest
+extent, each with its own ``dx`` (``scripts/preprocess_nuscenes.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,13 @@ import torch
 # default observation bounds [low_l, low_w, high_l, high_w] in meters
 # (reference utils/config.py:56-57)
 DEFAULT_BOUNDS = (-17.0, -38.5, 60.0, 38.5)
+
+NUSC_MAP_SIZES = {  # meters (H, W); reference map_env.py:14-19
+    "singapore-onenorth": (2025.0, 1585.6),
+    "singapore-hollandvillage": (2922.9, 2808.3),
+    "singapore-queenstown": (3687.1, 3228.6),
+    "boston-seaport": (2118.1, 2979.5),
+}
 
 ROAD_LAYERS = ("drivable_area", "road_segment", "lane")
 DEFAULT_LAYERS = ("drivable_area", "carpark_area", "road_divider", "lane_divider")

@@ -23,9 +23,12 @@ success check -> solution optimization -> scenario JSONs in the
   candidate comes from ``prior_noise``, drawn from one CPU generator
   seeded 0. Both are drawn on the CPU, so the card and the CPU see the
   same numbers.
-- Not ported yet, and raising ``NotImplementedError``: ``--viz`` and a
-  non-synthetic ``--data_version`` (P10), ``--mesh_devices > 1`` (P11),
-  ``--bf16`` (ROADMAP queue 1b).
+- ``--data_version mini``/``trainval`` reads the ETL output of
+  ``strive_tpu_torch.scripts.preprocess_nuscenes``; ``--viz`` renders each
+  scene before, after and (when solved) with its solution under
+  ``<out>/viz_results/<folder>/`` (``viz.py``, needs matplotlib).
+- Not ported yet, and raising ``NotImplementedError``: ``--mesh_devices >
+  1`` (P11), ``--bf16`` (ROADMAP queue 1b).
 """
 
 from __future__ import annotations
@@ -51,8 +54,9 @@ from ..planners.device_planner import DeviceRulePlanner
 from ..planners.host_bridge import make_planner_host_fn, reset_planner
 from ..utils.config import add_base_args, get_parser
 from ..utils.logger import Logger, mkdir
-from .common import (build_model, check_viz_and_data, init_params,
-                     load_checkpoint, prior_noise, resolve_device)
+from ..viz import get_adv_coloring, render_scene
+from .common import (build_model, init_params, load_checkpoint, prior_noise,
+                     resolve_device)
 
 INIT_FIT_ITERS = 75      # scripts/adv_scenario_gen.py:323
 PLANNER_REFIT_ITERS = 100  # scripts/adv_scenario_gen.py:370
@@ -133,7 +137,6 @@ def parse_cfg(argv=None):
 def check_ported(cfg):
     """Raise ``NotImplementedError`` on an option the port has not got yet,
     naming the step of ROADMAP that ports it."""
-    check_viz_and_data(cfg)
     if cfg.mesh_devices > 1:
         raise NotImplementedError("--mesh_devices > 1: multi-GPU is P11's")
     if cfg.bf16:
@@ -153,7 +156,23 @@ def _np(x):
     return x.detach().cpu().numpy()
 
 
-def main(argv=None, timings=None):
+def render_views(out_dir, scene_id, store, map_idx, past, lw, mask, colors,
+                 views, state_norm):
+    """One image a view, ``scene_%04d_<tag>.jpg`` under ``out_dir``
+    (``scripts/adv_scenario_gen.py:508-541``).
+
+    :param past, lw: the scene's UNNORMALIZED past and sizes (numpy)
+    :param views: [(NORMALIZED future (NA, FT, 4), tag, title)]
+    """
+    for fut, tag, title in views:
+        fut = _np(fut) if isinstance(fut, torch.Tensor) else fut
+        render_scene(os.path.join(out_dir, "scene_%04d_%s.jpg"
+                                  % (scene_id, tag)),
+                     store, map_idx, past, state_norm.unnormalize(fut), lw,
+                     mask, car_colors=colors, title=title)
+
+
+def main(argv=None, timings=None, max_batches=None):
     """Run the pipeline; returns the stats dict.
 
     :param timings: optional dict, filled with each stage's wall seconds
@@ -162,6 +181,8 @@ def main(argv=None, timings=None):
         and 'save' (one a batch each); the last loss of each optimization
         (``final_loss``); and ``batches`` [(secs, scenes, adv
         successes)]. Stages end in a device synchronize.
+    :param max_batches: stop after this many optimized batches (default:
+        screen every candidate)
     """
     cfg = parse_cfg(argv)
     check_ported(cfg)
@@ -230,7 +251,10 @@ def main(argv=None, timings=None):
                    "motion_prior_ext": cfg.sol_loss_motion_prior_ext,
                    "match_ext": cfg.sol_loss_match_ext}
 
+    viz_dir = os.path.join(cfg.out, "viz_results")
     scen_dir = os.path.join(cfg.out, "scenario_results")
+    if cfg.viz:
+        mkdir(viz_dir)
     if cfg.save:
         mkdir(scen_dir)
 
@@ -435,36 +459,52 @@ def main(argv=None, timings=None):
         batch_times.append((batch_secs, B, int(sum(adv_ok))))
         Logger.log("Optimized batch in %.1f sec" % batch_secs)
 
-        # save per scene
+        # save + viz per scene
         with stage("save"):
             mask_np = _np(scene.mask)
             for b in range(B):
-                if not cfg.save:
-                    break
                 n = int(mask_np[b].sum())
                 result_dir = ("adv_failed" if not adv_ok[b]
                               else ("adv_sol_success" if sol_ok[b]
                                     else "sol_failed"))
-                sc = {"past_gt": _np(scene.past_gt[b, :n]),
-                      "lw": _np(scene.lw[b, :n]),
-                      "sem": _np(scene.sem[b, :n])}
-                out_dict = prepare_output_dict(
-                    sc, int(scene.map_idx[b]), store.map_names, dt,
-                    state_norm, att_norm, _np(init_future_pred[b, :n]),
-                    _np(final_traj[b, :n]),
-                    sol_fut_traj=(sol_traj_store[b][:n] if adv_ok[b]
-                                  else None),
-                    attack_agt=int(min_agt[b]), attack_t=int(min_t[b]),
-                    adv_z=_np(z_adv[b, :n]),
-                    sol_z=(sol_z_store[b][:n] if adv_ok[b] else None),
-                    prior_distrib=(_np(prior[0][b, :n]),
-                                   _np(prior[1][b, :n])),
-                    internal_ego_traj=_np(internal_pred[b, 0]),
-                )
-                save_scenario(os.path.join(scen_dir, result_dir),
-                              "scene_%04d" % batch_ids[b], out_dict)
+                if cfg.save:
+                    sc = {"past_gt": _np(scene.past_gt[b, :n]),
+                          "lw": _np(scene.lw[b, :n]),
+                          "sem": _np(scene.sem[b, :n])}
+                    out_dict = prepare_output_dict(
+                        sc, int(scene.map_idx[b]), store.map_names, dt,
+                        state_norm, att_norm, _np(init_future_pred[b, :n]),
+                        _np(final_traj[b, :n]),
+                        sol_fut_traj=(sol_traj_store[b][:n] if adv_ok[b]
+                                      else None),
+                        attack_agt=int(min_agt[b]), attack_t=int(min_t[b]),
+                        adv_z=_np(z_adv[b, :n]),
+                        sol_z=(sol_z_store[b][:n] if adv_ok[b] else None),
+                        prior_distrib=(_np(prior[0][b, :n]),
+                                       _np(prior[1][b, :n])),
+                        internal_ego_traj=_np(internal_pred[b, 0]),
+                    )
+                    save_scenario(os.path.join(scen_dir, result_dir),
+                                  "scene_%04d" % batch_ids[b], out_dict)
+                if cfg.viz:
+                    render_views(os.path.join(viz_dir, result_dir),
+                                 batch_ids[b], store, int(scene.map_idx[b]),
+                                 state_norm.unnormalize(_np(
+                                     scene.past_gt[b, :n])),
+                                 att_norm.unnormalize(_np(scene.lw[b, :n])),
+                                 mask_np[b, :n],
+                                 get_adv_coloring(n, int(min_agt[b]), 0),
+                                 [(init_future_pred[b, :n], "before",
+                                   "before (init)"),
+                                  (final_traj[b, :n], "after",
+                                   "after (adversarial)")]
+                                 + ([(sol_traj_store[b][:n], "sol",
+                                      "solution")] if adv_ok[b] else []),
+                                 state_norm)
         if timings is not None:
             timings["batches"].append(batch_times[-1])
+        if max_batches is not None and len(batch_times) >= max_batches:
+            break
 
     elapsed = time.time() - t_start
     Logger.log("==== adv scenario generation done ====")

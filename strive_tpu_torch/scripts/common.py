@@ -58,11 +58,3 @@ def load_checkpoint(model, path):
     model.load_state_dict(params)
     return opt_state, epoch, min_val_loss
 
-
-def check_viz_and_data(cfg):
-    """Raise ``NotImplementedError`` on rendering and on real data (P10)."""
-    if getattr(cfg, "viz", False):
-        raise NotImplementedError("--viz: rendering (viz.py) is P10's")
-    if cfg.data_version != "synthetic":
-        raise NotImplementedError(
-            f"--data_version {cfg.data_version}: the nuScenes ETL is P10's")

@@ -20,10 +20,10 @@ failed}/scene_%04d.json``.
   it the weights are Flax's distributions from a generator seeded 0. The
   sample noise of each batch comes from ``prior_noise`` (a CPU generator
   seeded 0).
-- ``--viz`` and a non-synthetic ``--data_version`` are P10's and raise
-  ``NotImplementedError``; ``configs/refine_traffic_optim.cfg`` sets both
-  and a ``ckpt``, so run it with ``--data_version synthetic`` and a copy
-  without its ``viz`` and ``ckpt`` lines.
+- ``--data_version mini``/``trainval`` reads the ETL output of
+  ``strive_tpu_torch.scripts.preprocess_nuscenes``; ``--viz`` renders each
+  refined scene to ``<out>/viz_results/{success,failed}/scene_%04d.jpg``
+  (``viz.py``, needs matplotlib).
 """
 
 from __future__ import annotations
@@ -42,8 +42,9 @@ from ..normalize import effective_categories
 from ..optim.refine import run_refine_optim
 from ..utils.config import add_base_args, get_parser
 from ..utils.logger import Logger, mkdir
-from .common import (build_model, check_viz_and_data, init_params,
-                     load_checkpoint, prior_noise, resolve_device)
+from ..viz import render_scene
+from .common import (build_model, init_params, load_checkpoint, prior_noise,
+                     resolve_device)
 
 
 def parse_cfg(argv=None):
@@ -105,7 +106,6 @@ def main(argv=None, timings=None):
         device synchronize) and loss history (``losses``).
     """
     cfg = parse_cfg(argv)
-    check_viz_and_data(cfg)
     device = resolve_device(cfg.device)
     mkdir(cfg.out)
     Logger.init(os.path.join(cfg.out, "refine_log.txt"))
@@ -184,6 +184,16 @@ def main(argv=None, timings=None):
                 save_scenario(os.path.join(cfg.out, "scenario_results",
                                            result_dir),
                               "scene_%04d" % batch_ids[b], out_dict)
+            if cfg.viz:
+                render_scene(
+                    os.path.join(cfg.out, "viz_results", result_dir,
+                                 "scene_%04d.jpg" % batch_ids[b]),
+                    store, int(scene.map_idx[b]),
+                    state_norm.unnormalize(_np(scene.past_gt[b, :na])),
+                    state_norm.unnormalize(_np(fut[b, :na])),
+                    att_norm.unnormalize(_np(scene.lw[b, :na])),
+                    mask_np[b, :na],
+                )
 
     Logger.log("==== refine done ====")
     for k, v in stats.items():

@@ -17,12 +17,15 @@ metric is the mean over batches of its batch mean.
 - ``--ckpt`` names a checkpoint of the port's ``train_traffic``; without
   it the weights are Flax's distributions from a generator seeded 0. The
   sample noise comes from ``prior_noise`` (a CPU generator seeded 0).
-- The visualizations (``--test_sample_viz_multi``,
-  ``--test_sample_viz_rollout``, ``--test_recon_viz_multi``) and a
-  non-synthetic ``--data_version`` are P10's and raise
-  ``NotImplementedError``. The flags only switch on, so to run
-  ``configs/test_synth_prod.cfg`` pass a copy without its
-  ``test_sample_viz_multi`` line.
+- ``--data_version mini``/``trainval`` reads the ETL output of
+  ``strive_tpu_torch.scripts.preprocess_nuscenes``.
+- The visualizations of the first 3 batches, under ``<out>/viz``
+  (``viz.py``, needs matplotlib): ``--test_sample_viz_multi`` every
+  sample of the first scene overlaid (``sample_<i>.jpg``),
+  ``--test_sample_viz_rollout`` the first sample's per-step frames
+  (``rollout_<i>``, an mp4 where ffmpeg is present),
+  ``--test_recon_viz_multi`` the reconstruction of the first two scenes
+  beside the ground truth (``recon_multi_<i>_<b>.jpg``).
 """
 
 from __future__ import annotations
@@ -40,8 +43,9 @@ from ..losses.training import (compute_coll_rate_env, compute_disp_err,
 from ..normalize import effective_categories
 from ..utils.config import add_base_args, get_parser
 from ..utils.logger import Logger, mkdir
-from .common import (build_model, check_viz_and_data, init_params,
-                     load_checkpoint, prior_noise, resolve_device)
+from ..viz import render_rollout_video, render_scene
+from .common import (build_model, init_params, load_checkpoint, prior_noise,
+                     resolve_device)
 
 EVAL_KEYS = ("loss", "recon_loss", "kl_loss", "pos_err", "ang_err",
              "z_logprob", "z_mdist")
@@ -83,12 +87,6 @@ def _np(x):
 def main(argv=None):
     """Evaluate; returns {metric: mean over batches}."""
     cfg = parse_cfg(argv)
-    viz = (cfg.test_sample_viz_multi or cfg.test_sample_viz_rollout
-           or cfg.test_recon_viz_multi)
-    if viz:
-        raise NotImplementedError("--test_*_viz_*: rendering (viz.py) is "
-                                  "P10's")
-    check_viz_and_data(cfg)
     device = resolve_device(cfg.device)
     mkdir(cfg.out)
     Logger.init(os.path.join(cfg.out, "test_log.txt"))
@@ -105,13 +103,18 @@ def main(argv=None):
     model.to(device)
 
     weights = {"recon": cfg.loss_recon, "kl": cfg.loss_kl}
-    do_samples = cfg.test_sample_disp_err or cfg.test_sample_coll_rate
+    do_samples = (cfg.test_sample_disp_err or cfg.test_sample_coll_rate
+                  or cfg.test_sample_viz_multi or cfg.test_sample_viz_rollout)
+    viz_dir = os.path.join(cfg.out, "viz")
     noise_gen = torch.Generator().manual_seed(0)
     metrics = {}
 
     def acc(k, v):
         v = _np(v) if isinstance(v, torch.Tensor) else np.asarray(v)
         metrics.setdefault(k, []).append(float(np.mean(v)))
+
+    def unnorm_state(x):
+        return state_norm.unnormalize(_np(x))
 
     def coll_rates(prefix, scene, fut, n_traj):
         """Map (ego) and vehicle collision rates of (B, NS, NA, FT, 4)
@@ -126,8 +129,8 @@ def main(argv=None):
         acc(prefix + "coll_rate_veh", did.sum() / max(n_traj, 1))
 
     with torch.no_grad():
-        for scene in batch_iterator(ds, cfg.batch_size,
-                                    shuffle=cfg.shuffle_test):
+        for i, scene in enumerate(batch_iterator(ds, cfg.batch_size,
+                                                 shuffle=cfg.shuffle_test)):
             pred = model(scene, store, use_post_mean=True)
             out = traffic_model_loss(scene, pred, weights, state_norm,
                                      att_norm, store)
@@ -150,10 +153,42 @@ def main(argv=None):
                 if cfg.test_sample_coll_rate:
                     coll_rates("", scene, fut, n_agents * fut.shape[1])
             # reconstruction-based evaluations (reference test_traffic.py:137-167)
-            if cfg.test_recon_coll_rate:
+            if cfg.test_recon_coll_rate or cfg.test_recon_viz_multi:
                 recon = model.reconstruct(scene, store)
-                coll_rates("recon_", scene, recon["future_pred"][:, None],
-                           n_agents)
+                if cfg.test_recon_coll_rate:
+                    coll_rates("recon_", scene, recon["future_pred"][:, None],
+                               n_agents)
+                if cfg.test_recon_viz_multi and i < 3:
+                    for b in range(min(scene.B, 2)):
+                        render_scene(
+                            os.path.join(viz_dir, f"recon_multi_{i}_{b}.jpg"),
+                            store, int(scene.map_idx[b]),
+                            unnorm_state(scene.past_gt[b]),
+                            unnorm_state(recon["future_pred"][b]),
+                            att_norm.unnormalize(_np(scene.lw[b])),
+                            _np(scene.mask[b]),
+                            title=f"recon batch {i} scene {b}",
+                            gt_future=unnorm_state(
+                                scene.future_gt[b, :, :, :4]))
+            if cfg.test_sample_viz_rollout and i < 3:
+                # per-step rollout video of the first sample (reference
+                # test_traffic.py:195-208, viz_traj=False + make_video)
+                render_rollout_video(
+                    os.path.join(viz_dir, f"rollout_{i}"), store,
+                    int(scene.map_idx[0]), unnorm_state(scene.past_gt[0]),
+                    unnorm_state(fut[0, 0]),
+                    att_norm.unnormalize(_np(scene.lw[0])),
+                    _np(scene.mask[0]))
+            if cfg.test_sample_viz_multi and i < 3:
+                # ALL NS samples overlaid, one color per sample (reference
+                # test_traffic.py:181-193 -> viz_scene_graph)
+                fut_un = unnorm_state(fut[0])  # (NS, NA, FT, 4)
+                render_scene(
+                    os.path.join(viz_dir, f"sample_{i}.jpg"), store,
+                    int(scene.map_idx[0]), unnorm_state(scene.past_gt[0]),
+                    fut_un, att_norm.unnormalize(_np(scene.lw[0])),
+                    _np(scene.mask[0]),
+                    title=f"sample batch {i} ({fut_un.shape[0]} samples)")
 
     Logger.log("==== evaluation results ====")
     for k, v in sorted(metrics.items()):

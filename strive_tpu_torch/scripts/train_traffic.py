@@ -18,8 +18,10 @@ ends), a validation pass every ``--val_every`` epochs that writes
   generator, seeded 0.
 - ``--profile_dir`` writes a ``torch.profiler`` trace of epoch
   ``ckpt_epoch + 1`` there (``trace.json``, Chrome format).
-- Not ported yet, and raising ``NotImplementedError``: a non-synthetic
-  ``--data_version`` and appending ``--scenario_dir`` (P10), ``--bf16``
+- ``--data_version mini``/``trainval`` reads the ETL output of
+  ``strive_tpu_torch.scripts.preprocess_nuscenes``; ``--scenario_dir``
+  appends saved scenarios to the training split.
+- Not ported yet, and raising ``NotImplementedError``: ``--bf16``
   (ROADMAP queue 1b).
 """
 
@@ -36,8 +38,8 @@ from ..train import Trainer, compute_kl_weight
 from ..utils.checkpoint import save_state
 from ..utils.config import add_base_args, get_parser
 from ..utils.logger import Logger, mkdir
-from .common import (build_model, check_viz_and_data, init_params,
-                     load_checkpoint, resolve_device)
+from .common import (build_model, init_params, load_checkpoint,
+                     resolve_device)
 
 
 def parse_cfg(argv=None):
@@ -73,7 +75,6 @@ def main(argv=None, timings=None):
         epoch's ``train`` and ``val`` metric dicts.
     """
     cfg = parse_cfg(argv)
-    check_viz_and_data(cfg)
     device = resolve_device(cfg.device)
     mkdir(cfg.out)
     Logger.init(os.path.join(cfg.out, "train_log.txt"))

@@ -2,9 +2,12 @@
 
 Every module of ``strive_tpu_torch/``, ``tools/`` and ``chip_smoke.py`` is
 scanned (AST, so imports inside functions count too) for imports of jax,
-flax, optax, strive_tpu or yaml. The package must import on a machine without nvcc or
-triton, and a call on CPU tensors must take the plain versions without
-launching (or building) a kernel.
+flax, optax, strive_tpu, yaml or sklearn; matplotlib and the nuScenes
+devkit may be imported only inside a function (the card's machine has none
+of matplotlib, sklearn and the devkit; the devkit is needed only by the
+preprocessing of the raw download). The package must import on a
+machine without nvcc, triton or matplotlib, and a call on CPU tensors must
+take the plain versions without launching (or building) a kernel.
 """
 
 import ast
@@ -24,8 +27,11 @@ from strive_tpu_torch.utils import build
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "strive_tpu_torch"
 # yaml too: the card's machine has no PyYAML (utils/config.py reads the
-# config files itself)
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "strive_tpu", "yaml"}
+# config files itself); nor sklearn (kmeans.py)
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "strive_tpu", "yaml",
+             "sklearn"}
+# imported only inside the functions that draw or read the raw download
+FUNCTION_ONLY = {"matplotlib", "nuscenes"}
 SOURCES = sorted(p.relative_to(ROOT).as_posix()
                  for p in [*PACKAGE.rglob("*.py"), *ROOT.glob("tools/*.py")]
                  ) + ["chip_smoke.py"]
@@ -47,6 +53,39 @@ def _imported_roots(path):
             yield str(node.args[0].value).split(".")[0]
 
 
+def _module_level_roots(path):
+    """Top-level names of the imports that run when the file is imported
+    (outside every function body)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+
+    def walk(node):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                  ast.Lambda)):
+                continue
+            if isinstance(child, ast.Import):
+                yield from (a.name.split(".")[0] for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                yield child.module.split(".")[0]
+            yield from walk(child)
+
+    yield from walk(tree)
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_matplotlib_and_devkit_only_inside_functions(source):
+    bad = sorted(set(_module_level_roots(ROOT / source)) & FUNCTION_ONLY)
+    assert not bad, f"{source} imports {bad} when imported"
+
+
+def test_scan_sees_module_level_imports(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import matplotlib\nif True:\n    import matplotlib.pyplot\n"
+                 "def g():\n    import numpy\nclass C:\n    import os\n")
+    assert sorted(_module_level_roots(f)) == ["matplotlib", "matplotlib",
+                                              "os"]
+
+
 @pytest.mark.parametrize("source", SOURCES)
 def test_no_jax_or_reference_imports(source):
     bad = sorted(set(_imported_roots(ROOT / source)) & FORBIDDEN)
@@ -63,20 +102,23 @@ def test_scan_sees_forbidden_imports(tmp_path):
 
 
 def test_package_imports_without_nvcc_or_triton(tmp_path):
-    """Every module imports with no nvcc on PATH, no CUDA_HOME and triton
-    unimportable; importing builds nothing and loads no JAX."""
+    """Every module imports with no nvcc on PATH, no CUDA_HOME and triton,
+    matplotlib and sklearn unimportable; importing builds nothing and loads
+    no JAX."""
     modules = [".".join(Path(s).with_suffix("").parts) for s in SOURCES
                if s.startswith("strive_tpu_torch/")]
     modules = [m[:-len(".__init__")] if m.endswith(".__init__") else m
                for m in modules]
     code = "\n".join([
         "import importlib, sys",
-        "sys.modules['triton'] = None",
+        "for m in ('triton', 'matplotlib', 'sklearn', 'nuscenes'):",
+        "    sys.modules[m] = None",
         f"for m in {modules!r}:",
         "    importlib.import_module(m)",
         "from strive_tpu_torch.utils import build",
         "assert not build._LIBS, build._LIBS",
-        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "bad = [m for m, v in sys.modules.items() if v is not None and "
+        "m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r}]",
         "assert not bad, bad",
         "assert sys.modules['triton'] is None",

@@ -189,6 +189,35 @@ def test_footprint_refine_and_training_shapes_match_plain(dev):
     kc.coll_point_error(args)
 
 
+@pytest.fixture(scope="module")
+def nusc(dev):
+    """The four nuScenes maps at their extents, 4 px/m (3.05 GB raster on
+    the card), and K1's (both layouts) and K2's arguments over the poses
+    of ``kernel_cases.nusc_pose_cases``."""
+    store = kc.nusc_store(dev)
+    cases = kc.nusc_pose_cases(store)
+    return store, kc.nusc_kernel_args(store, cases)
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+def test_map_crop_nusc_store_matches_plain(nusc, layout):
+    """K1 bit-exact on the nuScenes-extent store: per-map dx that is not
+    0.25 (the division x / dx at non-dyadic dx), poses at the true edges,
+    in the zero padding of the smaller maps, off the stack, on the
+    flipped Singapore maps."""
+    store, (k1_nhwc, k1_nchw, _) = nusc
+    args = k1_nhwc if layout == "nhwc" else k1_nchw
+    got, ref = crop_kernel.map_crop(*args), crop_kernel.map_crop_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert float(ref.sum()) > 0
+
+
+def test_footprint_nusc_store_matches_plain(nusc):
+    _, (_, _, k2) = nusc
+    kc.coll_point_error(k2)
+
+
 def test_cuda_dispatch_launches_the_kernels(dev, store):
     rng = np.random.default_rng(4)
     pos = torch.from_numpy(_poses(rng, 4, 150.0, 360.0)).to(dev)

@@ -587,17 +587,56 @@ def test_config_reader_raises_outside_the_subset(tmp_path, line):
 
 # ---- the entry point's refusals -----------------------------------------------
 
-@pytest.mark.parametrize("extra,exc", [
-    (["--data_version", "trainval"], NotImplementedError),
-    (["--viz"], NotImplementedError),
+@pytest.mark.parametrize("extra,want", [
+    (["--data_version", "trainval"], FileNotFoundError),
+    (["--viz"], "viz_results"),
     (["--mesh_devices", "2"], NotImplementedError),
     (["--bf16"], NotImplementedError),
-    (["--data_version", "mini"], NotImplementedError),
-])
-def test_entry_point_raises_on_options_not_ported(tmp_path, extra, exc):
-    with pytest.raises(exc):
-        tgen.main(["-c", os.path.join(REPO, "configs/adv_gen_synthetic.cfg"),
-                   "--out", str(tmp_path), "--device", "cpu"] + extra)
+    (["--data_version", "mini"], FileNotFoundError),
+], ids=["trainval-no-etl-FileNotFoundError", "viz-renders",
+        "mesh_devices-NotImplementedError", "bf16-NotImplementedError",
+        "mini-no-etl-FileNotFoundError"])
+def test_entry_point_raises_on_options_not_ported(tmp_path, extra, want):
+    """Multi-GPU and bf16 still raise; real nuScenes without its ETL
+    directory raises strive_tpu's FileNotFoundError; --viz renders every
+    saved scene before and after the adversarial optimization."""
+    argv = ["-c", os.path.join(REPO, "configs/adv_gen_synthetic.cfg"),
+            "--out", str(tmp_path), "--device", "cpu",
+            "--data_dir", str(tmp_path / "no_etl")] + extra
+    if want != "viz_results":
+        with pytest.raises(want):
+            tgen.main(argv)
+        return
+    tgen.main(argv + ["--num_iters", "1", "--max_scenes", "2"])
+    jsons = glob.glob(str(tmp_path / "scenario_results" / "*" / "*.json"))
+    assert len(jsons) == 2
+    for path in jsons:
+        folder, name = path.split(os.sep)[-2:]
+        for view in ("before", "after"):
+            img = tmp_path / want / folder / f"{name[:-5]}_{view}.jpg"
+            assert img.stat().st_size > 1000, img
+
+
+def test_entry_point_stops_after_max_batches(tmp_path):
+    """``max_batches=1`` ends the run after its first optimized batch: the
+    stats and scenario files of a run cut by ``--max_scenes`` at the
+    candidate that filled that batch."""
+    argv = ["-c", os.path.join(REPO, "configs/adv_gen_synthetic.cfg"),
+            "--device", "cpu", "--num_iters", "1", "--batch_size", "1"]
+    timings = {}
+    got = tgen.main(argv + ["--out", str(tmp_path / "a"), "--max_scenes",
+                            "8"], timings, max_batches=1)
+    assert len(timings["batches"]) == 1 and got["feasible"] == 1
+    assert got["candidates"] < 8
+    want = tgen.main(argv + ["--out", str(tmp_path / "b"), "--max_scenes",
+                             str(got["candidates"])])
+    assert got == want
+
+    def files(d):
+        root = tmp_path / d / "scenario_results"
+        return sorted(os.path.relpath(p, root)
+                      for p in glob.glob(str(root / "*" / "*.json")))
+    assert files("a") == files("b") and files("a")
 
 
 def test_entry_point_needs_a_card_unless_asked_for_the_cpu(tmp_path):
@@ -682,8 +721,11 @@ def test_load_environment_matches(split):
         assert tlg[name]["in_edges"] == jlg[name]["in_edges"]
     np.testing.assert_array_equal(tsn.mean_np, np.asarray(jsn.mean))
     np.testing.assert_array_equal(tan.std_np, np.asarray(jan.std))
-    cfg.data_version = "mini"
-    with pytest.raises(NotImplementedError):
+    # real nuScenes reads the ETL directory: absent, both raise alike
+    cfg.data_version, cfg.data_dir = "mini", "/nonexistent"
+    with pytest.raises(FileNotFoundError):
+        j_load(cfg, split)
+    with pytest.raises(FileNotFoundError):
         t_load(cfg, split, device="cpu")
 
 

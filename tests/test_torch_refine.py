@@ -51,6 +51,7 @@ JSONs have the schema.
 """
 
 import json
+import glob
 import os
 import sys
 
@@ -262,12 +263,20 @@ def test_lbfgs_entry_point_runs(tmp_path):
 
 
 def test_entry_point_refuses_what_is_not_ported(tmp_path):
+    """What refine once refused now runs as strive_tpu's does: --viz
+    renders every refined scene, and real nuScenes without its ETL
+    directory raises FileNotFoundError."""
     cfg = tmp_path / "refine.cfg"
     cfg.write_text(CONFIG)
-    for extra in (["--viz"], ["--data_version", "trainval"]):
-        with pytest.raises(NotImplementedError):
-            tref.main(["-c", str(cfg), "--out", str(tmp_path), "--device",
-                       "cpu"] + extra)
+    base = ["-c", str(cfg), "--device", "cpu", "--data_dir",
+            str(tmp_path / "no_etl")]
+    with pytest.raises(FileNotFoundError):
+        tref.main(base + ["--out", str(tmp_path / "d"), "--data_version",
+                          "trainval"])
+    stats = tref.main(base + ["--out", str(tmp_path / "v"), "--viz",
+                              "--num_iters", "1"])
+    imgs = glob.glob(str(tmp_path / "v" / "viz_results" / "*" / "*.jpg"))
+    assert len(imgs) == stats["scenes"] > 0
 
 
 def test_refine_k2_args_are_the_avoid_loss(monkeypatch):

@@ -240,6 +240,9 @@ def test_test_traffic_metrics_match(tmp_path, monkeypatch):
                                        err_msg=k)
     assert "==== evaluation results ====" in _log(str(tmp_path / "port"),
                                                   "test_log.txt")
-    with pytest.raises(NotImplementedError):
-        ttest.main(["-c", str(cfg), "--out", str(tmp_path / "v"),
-                    "--device", "cpu", "--test_sample_viz_multi"])
+    # the sample overlay renders the first scene of each of the first 3
+    # batches, as strive_tpu's does
+    ttest.main(["-c", str(cfg), "--out", str(tmp_path / "v"),
+                "--device", "cpu", "--test_sample_viz_multi"])
+    assert sorted(os.listdir(tmp_path / "v" / "viz")) == [
+        f"sample_{i}.jpg" for i in range(2)]  # 8 scenes: 2 batches
