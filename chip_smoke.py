@@ -12,7 +12,8 @@ pipeline through its entry point, as ``scripts/adv_scenario_gen.py`` runs
 it, at the production config's widths (phase 9); and refine, training and
 evaluation through their entry points, as ``scripts/refine_traffic_optim.py``,
 ``train_traffic.py`` and ``test_traffic.py`` run them, at their configs'
-widths (phases 10 and 11). Phases:
+widths (phases 10 and 11); and the model's options, bf16 compute among
+them, on the main path and in training (phase 13). Phases:
 
 1. the card's name and power limit (nvidia-smi); fails without CUDA;
 2. builds the CUDA kernels from ``strive_tpu_torch/csrc`` (nvcc, parallel);
@@ -131,7 +132,30 @@ widths (phases 10 and 11). Phases:
       through ``--ckpt``: every metric finite, the stats of c above,
       test_traffic's K1 launches exact (2 (1 + FT) + 1 + the sample length
       a batch, no K2);
-12. (run after 11, before 7) nuScenes' data format at its scale, then the
+13. (run after 11, before 12) the model options of ``TrafficModel``:
+   a. K1 writing bfloat16 (the bf16 model's crop) in both layouts, held
+      bit for bit against its plain version in bf16 at phase 3's cases
+      (the main path's shape, inside and off the map, NaN poses, 3
+      channels, 64 px), at training's 128 poses, and in 12b on the
+      nuScenes-extent store (true edges, padding, off the stack); timed
+      at 32 and 128 poses beside the float32 K1, the plain version and
+      both bounds;
+   b. phase 5's small run (3 iterations) with each option: bf16 compute,
+      the direct state output (``output_bicycle=False``), the 'gru'
+      encoders, ``map_refresh_every`` 2 and 3 (FT 6), card against CPU
+      within ``SMALL_BOUNDS`` (the reason beside it); K1 launched 1 +
+      (iterations + 1) x FT / k times;
+   c. the main path in bf16 (phase 6's weights, TF32 off): exact launches,
+      it/s, and for both dtypes the device ms an iteration split into
+      convolutions, GroupNorm, K1 and the rest, the busy share, kernels
+      and casts an iteration (one ``torch.profiler`` window of 3
+      iterations); the it/s of both timed in turns (f32, bf16, bf16,
+      f32); then ``train_traffic --bf16`` as 11b runs it, cut to 3 + 3
+      batches: ms a step, peak memory, busy share over two steps, exact
+      launches, finite metrics, each beside 11b's float32 figures;
+   d. the main path at ``map_refresh_every=2``: exactly 1 + 21 x 6 = 127
+      K1 launches, and its it/s in turns with phase 6's k = 1 model;
+12. (run after 13, before 7) nuScenes' data format at its scale, then the
    tools:
    a. an ETL directory written under the temporary directory (removed at
       the end) by ``data.synthetic_etl.write_synthetic_etl`` through the
@@ -195,7 +219,7 @@ widths (phases 10 and 11). Phases:
    (``probes.mosaic_bisect.run``) with the K5 counters set to 0: every
    variant correct, and the counters equal to the launches worked out from
    ``REPS`` and each variant's kernel;
-13. prints the probes' and the variants' JSON lines, the ``closed_loop``
+14. prints the probes' and the variants' JSON lines, the ``closed_loop``
    JSON line (B, NA, FT, iters; it/s, planner ms per call and share for
    each backend; the device planner's kernels per call; the parity
    numbers of a; the card), the ``pipeline`` JSON line (phase 9: per-stage
@@ -203,7 +227,8 @@ widths (phases 10 and 11). Phases:
    an hour for the batch, the K1/K2 launches, b's largest differences, the
    cuts in ``reduced``, the card), the ``refine`` and ``training`` JSON
    lines (phases 10 and 11), the ``nuscenes`` JSON line (phase 12), the
-   ``kernels`` JSON line, the main path's it/s
+   ``options`` JSON line (phase 13), the ``kernels`` JSON line, the main
+   path's it/s
    beside the card's name and power limit, and last the device JSON line.
    Each kernel's ``path`` names the path its ``launches`` were counted on:
    the open-loop main path for K1 and K2, the gather-probe path for K3 and
@@ -215,7 +240,9 @@ widths (phases 10 and 11). Phases:
    phase-10a timings, ``refine_launches`` their counts in 10c's Adam run
    and ``training_launches_per_step`` theirs in 11b; ``nusc_train_shape``
    and ``nusc_adv_shape`` their phase-12b timings, ``nusc_train_launches``
-   and ``nusc_adv_launches`` their counts in 12c and 12d.
+   and ``nusc_adv_launches`` their counts in 12c and 12d; K1's
+   ``bf16_shape`` its phase-13a timings, ``bf16_launches`` its count on
+   13c's bf16 main path and ``refresh2_launches`` on 13d's.
 
 Any failure raises, and the script exits non-zero.
 """
@@ -279,17 +306,18 @@ def unique_raster_bytes(torch, queries, packed, dx, xys, mapix):
     return int(torch.unique((m * H + py) * W + px).numel())
 
 
-def crop_work(torch, queries, args):
+def crop_work(torch, queries, args, out_bytes=4):
     """(bytes, float ops) of one K1 call on ``args``: the distinct raster
     bytes its samples read (this run's data), its other inputs once, its
-    float32 output once; 9 float ops a sample."""
+    output of ``out_bytes`` a value (4 float32, 2 bf16) once; 9 float ops
+    a sample."""
     packed, dx, pos, mapix, lo, wo, C = args[:7]
     xys = queries.rotate_grid(lo[None, :, None], wo[None, None, :],
                               pos[:, :2], pos[:, 2:4])
     n_pix = pos.shape[0] * lo.numel() * wo.numel()
     nbytes = (unique_raster_bytes(torch, queries, packed, dx, xys, mapix)
               + pos.numel() * 4 + mapix.numel() * 8 + dx.numel() * 4
-              + (lo.numel() + wo.numel()) * 4 + n_pix * C * 4)
+              + (lo.numel() + wo.numel()) * 4 + n_pix * C * out_bytes)
     return nbytes, n_pix * CROP_FLOPS_PER_PIXEL
 
 
@@ -791,18 +819,20 @@ SMALL_KW = dict(map_bounds=(-4.0, -8.0, 12.0, 8.0), conv_kernels=(5, 3, 3),
                 conv_strides=(2, 2, 2), conv_filters=(8, 8, 16), FT=3)
 
 
-def small_setup(torch, tm, norm, device):
+def small_setup(torch, tm, norm, device, **options):
     """Phase 5's small run on ``device``: the tiny model (32 px crops,
-    FT=3), a 2 x 256 px store, 2 scenes of 2-4 agents, and its embedding."""
+    FT=3, or ``options``' FT and model options), a 2 x 256 px store, 2
+    scenes of 2-4 agents, and its embedding."""
     from strive_tpu_torch.data.synthetic import synthetic_scene_list
     from strive_tpu_torch.maps.store import synthetic_map_store
     from strive_tpu_torch.scene import pad_scene_arrays
 
-    m = build_model(torch, tm, norm, 32, device=device, **SMALL_KW)
+    kw = {**SMALL_KW, **options}
+    m = build_model(torch, tm, norm, 32, device=device, **kw)
     st = synthetic_map_store(num_maps=2, size_px=256, channels=4,
                              device=device)
     sc = pad_scene_arrays(synthetic_scene_list(
-        num_scenes=2, num_maps=2, map_size_px=256, PT=PT, FT=3,
+        num_scenes=2, num_maps=2, map_size_px=256, PT=PT, FT=kw["FT"],
         min_agents=2, max_agents=4), 4, 2, device=device)
     with torch.no_grad():
         emb = m.embed(sc, st)
@@ -1570,8 +1600,13 @@ def check_jsons(np, root, folders, schema):
     return n
 
 
-def busy_share(torch, fn):
-    """Wall ms, device busy ms and kernel launches of ``fn`` (torch.profiler)."""
+def busy_share(torch, fn, iters=1):
+    """Wall ms, device busy ms and its share of the wall, and kernel
+    launches of ``fn``; its device ms split into convolutions (forward and
+    backward), GroupNorm (forward and backward), K1 and the rest; dtype
+    casts (``aten::_to_copy`` calls); the eight longest kernels
+    (torch.profiler). Every figure but the share is per iteration of
+    ``fn``'s ``iters``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1581,12 +1616,33 @@ def busy_share(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    kern = [e for e in events
             if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kern) / 1e3
-    return {"wall_ms": wall, "device_busy_ms": busy,
+
+    def op_ms(names):  # device time of the kernels these ops launched
+        return sum(e.device_time_total for e in events
+                   if e.device_type.name == "CPU" and e.key in names) / 1e3
+
+    conv = op_ms(("aten::cudnn_convolution", "aten::convolution_backward"))
+    gn = op_ms(("aten::native_group_norm",
+                "aten::native_group_norm_backward"))
+    k1 = sum(e.self_device_time_total for e in kern
+             if "map_crop_kernel" in e.key) / 1e3
+    casts = sum(e.count for e in events
+                if e.device_type.name == "CPU" and e.key == "aten::_to_copy")
+    return {"wall_ms": wall / iters, "device_busy_ms": busy / iters,
             "busy_share": busy / wall,
-            "kernel_launches": sum(e.count for e in kern)}
+            "kernel_launches": sum(e.count for e in kern) / iters,
+            "conv_ms": conv / iters, "group_norm_ms": gn / iters,
+            "map_crop_ms": k1 / iters,
+            "rest_ms": (busy - conv - gn - k1) / iters,
+            "casts": casts / iters,
+            "top_kernels_ms": {
+                e.key[:90]: e.self_device_time_total / 1e3 / iters
+                for e in sorted(kern, key=lambda e: -e.self_device_time_total)
+                [:8]}}
 
 
 def training_phase(torch, np, tm, norm, card, counters, kernels, refine_cfg):
@@ -1924,6 +1980,7 @@ def nusc_phase(torch, np, rates, card, counters, kernels, dev):
                                      f"the nuScenes store ({args[-1]}): "
                                      f"{int((got != want).sum())} values")
             del got, want
+            check_bf16_crop(torch, crop_kernel, args)  # 13a on this store
         k2_err = kc.coll_point_error(k2)
         n_cases = {k: int(len(v[1])) for k, v in cases.items()}
         # the launch shapes of c and d, from their data
@@ -1997,6 +2054,7 @@ def nusc_phase(torch, np, rates, card, counters, kernels, dev):
                 f"{entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} "
                 f"ms by {entry['bound_by']})")
         line["b"] = {"cases": n_cases, "map_crop": "bit-exact, both layouts",
+                     "map_crop_bf16": "bit-exact, both layouts",
                      "footprint_coll_point_max_abs_err": k2_err}
         log(f"12b. map_crop bit-exact and footprint_coll_point within "
             f"tolerance (coll_pt {k2_err:.3g}) on {n_cases} poses of the "
@@ -2193,6 +2251,287 @@ def nusc_phase(torch, np, rates, card, counters, kernels, dev):
         shutil.rmtree(data_dir, ignore_errors=True)
     line["seconds"]["phase"] = sum(line["seconds"].values())
     return line
+
+
+# phase 13b: each option of TrafficModel on phase 5's small run (FT 6 for
+# the refresh runs, so that k = 2 and 3 divide it)
+OPTIONS = {"bf16": dict(compute_dtype="bfloat16"),
+           "direct": dict(output_bicycle=False),
+           "gru": dict(traj_encoder="gru"),
+           "refresh2": dict(map_refresh_every=2, FT=6),
+           "refresh3": dict(map_refresh_every=3, FT=6)}
+OPTION_ITERS = 3
+# 13b's bounds, card against CPU: (loss history rtol, final rollouts as a
+# share of their largest magnitude, "steady" latents, every latent). Adam
+# steps lr g / (|g| + 1e-8): where |g| is near 1e-7 float noise in g moves
+# the step by a share of lr, and where g is noise its sign may flip (2
+# lr). So the latents the CPU's run stepped a full lr the same way all
+# three times ("steady") get the tight bound. Float32 options: phase 5's
+# bounds (1e-3, 1e-4) and 1e-3 on every latent (measured on an H100 in
+# the k = 2 run: one latent 4.7e-4 apart while the losses agreed to
+# 3.3e-7 and the rollouts to 3.7e-6). bf16, as
+# tests/test_torch_model_options.py holds the port's bf16 against
+# strive_tpu's (bf16 rounds at other places in cuBLAS/cuDNN than on the
+# CPU): every latent within the 6 lr that three opposite steps can part.
+SMALL_BOUNDS = {"f32": (1e-3, 1e-4, 1e-4, 1e-3),
+                "bf16": (1e-2, 3e-3, 2e-2, 6 * 0.05)}
+PROFILE_ITERS = 3  # 13c's torch.profiler window
+TURN_ITERS = 10  # iterations of each timed turn of 13c and 13d
+BF16_TRAIN_SCENES = 24  # 13c's bf16 training: 3 + 3 batches of 8 (11b: 5)
+
+
+def its_in_turns(torch, models, scene, store):
+    """it/s of ``TURN_ITERS`` open-loop iterations (after the embed) of
+    each model of the pair ``models``, timed in turns a, b, b, a (the
+    host's speed drifts within a run): :return: ([a, a], [b, b])."""
+    from strive_tpu_torch.optim.adv import run_adv_gen_optim
+
+    out = ([], [])
+    for i in (0, 1, 1, 0):
+        with torch.no_grad():
+            emb = models[i].embed(scene, store)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_optim(run_adv_gen_optim, models[i], scene, store, emb,
+                  TURN_ITERS)
+        torch.cuda.synchronize()
+        out[i].append(TURN_ITERS / (time.perf_counter() - t0))
+    return out
+
+
+def check_bf16_crop(torch, crop_kernel, args):
+    """Phase 13a: K1's bfloat16 output equals its plain version's, bit for
+    bit (0 and 1 are exact in bf16)."""
+    got = crop_kernel.map_crop(*args, torch.bfloat16)
+    want = crop_kernel.map_crop_plain(*args, torch.bfloat16)
+    torch.cuda.synchronize()
+    if got.dtype != torch.bfloat16 or not torch.equal(got, want):
+        raise AssertionError(f"13a. bf16 map_crop differs from plain "
+                             f"({args[-1]}, C {args[6]}, "
+                             f"{args[2].shape[0]} poses): "
+                             f"{int((got != want).sum())} values")
+
+
+def options_phase(torch, np, tm, norm, rates, card, counters, kernels,
+                  main_path, f32_model, phase6_its, training, k1_cases):
+    """Phase 13: the model options on the card (module doc).
+
+    :param main_path: (model, scene, store) of phase 6
+    :param k1_cases: phase 3's K1 argument tuples (float32)
+    :return: the ``options`` JSON line's dict"""
+    from strive_tpu_torch import kernel_cases as kc
+    from strive_tpu_torch.data.loading import load_environment
+    from strive_tpu_torch.maps import crop_kernel, queries
+    from strive_tpu_torch.normalize import effective_categories
+    from strive_tpu_torch.optim.adv import run_adv_gen_optim
+    from strive_tpu_torch.scripts import common
+    from strive_tpu_torch.scripts import train_traffic as trt
+    from strive_tpu_torch.train import Trainer
+    from strive_tpu_torch.utils.timing import cuda_ms
+
+    bf16 = torch.bfloat16
+    scene, store = main_path
+    line = {"options": "TrafficModel's bf16 compute, direct output, GRU "
+                       "encoders and map refresh", "card": card,
+            "seconds": {}}
+
+    # --- a. K1 writing bf16 -------------------------------------------------
+    t0 = time.perf_counter()
+    checked = 0
+    for args in k1_cases:
+        for layout in ("nhwc", "nchw"):
+            a = (*args[:-1], layout)
+            check_bf16_crop(torch, crop_kernel, a)
+            checked += 1
+    shapes = {}
+    for what, args in (("main_32", k1_cases[0]),
+                       ("training_128", kc.decode_crop_args(DEV, 8))):
+        entry = {"poses": int(args[2].shape[0])}
+        check_bf16_crop(torch, crop_kernel, args)  # the shape it is timed at
+        checked += 1
+        for tag, dt, nb in (("f32", torch.float32, 4), ("bf16", bf16, 2)):
+            entry[f"{tag}_ms"] = cuda_ms(
+                lambda: crop_kernel.map_crop(*args, dt), 200)
+            entry[f"{tag}_bound_ms"], entry["bound_by"] = bound_ms(
+                rates, *crop_work(torch, queries, args, out_bytes=nb))
+        entry["bf16_plain_ms"] = cuda_ms(
+            lambda: crop_kernel.map_crop_plain(*args, bf16), 20)
+        shapes[what] = entry
+    line["a"] = {"bit_exact_cases": checked, "shapes": shapes}
+    line["seconds"]["a"] = time.perf_counter() - t0
+    log(f"13a. bf16 map_crop bit-exact on {checked} cases (both layouts); "
+        f"{shapes}")
+
+    # --- b. phase 5's small run with each option, card against CPU ---------
+    t0 = time.perf_counter()
+    small = {}
+    for name, opt in OPTIONS.items():
+        runs = []
+        for d in ("cpu", DEV):
+            zero(counters)
+            m, st, sc, emb = small_setup(torch, tm, norm, d, **opt)
+            out = run_optim(run_adv_gen_optim, m, sc, st, emb, OPTION_ITERS)
+            torch.cuda.synchronize()
+            launches = counted(counters)  # the card's: the last run
+            runs.append({"z": out[0].cpu(), "result": out[1].cpu(),
+                         "losses": out[4].cpu(), "z0": emb["prior_out"][0]
+                         .cpu()})
+        cpu, card_run = runs
+        ft = opt.get("FT", SMALL_KW["FT"])
+        k = opt.get("map_refresh_every", 1)
+        # the embed, then a decode an iteration and the final decode
+        want_k1 = 1 + (OPTION_ITERS + 1) * ft // k
+        if launches["map_crop"] != want_k1:
+            raise AssertionError(f"13b. {name}: map_crop launched "
+                                 f"{launches['map_crop']} times, expected "
+                                 f"{want_k1}")
+        loss_rel = float(((card_run["losses"] - cpu["losses"]).abs()
+                          / cpu["losses"].abs()).max())
+        z_diff = (card_run["z"] - cpu["z"]).abs()
+        res_rel = float((card_run["result"] - cpu["result"]).abs().max()
+                        / cpu["result"].abs().max())
+        steady = (cpu["z"] - cpu["z0"]).abs() >= 2.9 * 0.05
+        entry = {"k1_launches": launches["map_crop"], "loss_rel": loss_rel,
+                 "result_rel": res_rel, "z_max_abs": float(z_diff.max()),
+                 "steady_z_max_abs": float(z_diff[steady].max())
+                 if bool(steady.any()) else 0.0,
+                 "steady_share": float(steady.float().mean())}
+        loss_tol, res_tol, steady_tol, z_tol = SMALL_BOUNDS[
+            "bf16" if name == "bf16" else "f32"]
+        ok = (loss_rel <= loss_tol and res_rel <= res_tol
+              and entry["steady_z_max_abs"] <= steady_tol
+              and entry["z_max_abs"] <= z_tol)
+        if not ok:
+            raise AssertionError(f"13b. {name}: card against CPU {entry}")
+        small[name] = entry
+    line["b"] = small
+    line["seconds"]["b"] = time.perf_counter() - t0
+    log(f"13b. the options' small runs, card against CPU: {small}")
+
+    # --- c. the main path and training in bf16 at full width ----------------
+    t0 = time.perf_counter()
+    model = build_model(torch, tm, norm, MAP_PX, compute_dtype="bfloat16")
+
+    def run(m, iters):
+        with torch.no_grad():
+            emb = m.embed(scene, store)
+        out = run_optim(run_adv_gen_optim, m, scene, store, emb, iters)
+        torch.cuda.synchronize()
+        return out
+
+    run(model, 2)  # warm-up: cuDNN plans
+    zero(counters)
+    z, result, _, _, losses, _ = run(model, ITERS)
+    launches = counted(counters)
+    expected = dict.fromkeys(launches, 0)
+    expected.update(map_crop=1 + FT * ITERS + FT,
+                    footprint_coll_point=ITERS + 1)
+    if launches != expected:
+        raise AssertionError(f"13c. bf16 launches {launches}, expected "
+                             f"{expected}")
+    if not (bool(torch.isfinite(losses).all())
+            and bool(torch.isfinite(result).all())
+            and bool(torch.isfinite(z).all())):
+        raise AssertionError("13c. bf16 main path not finite")
+    f32_its, its = its_in_turns(torch, (f32_model, model), scene, store)
+    split = {}
+    for tag, m in (("f32", f32_model), ("bf16", model)):
+        with torch.no_grad():
+            e = m.embed(scene, store)
+        split[tag] = busy_share(torch, lambda: run_optim(
+            run_adv_gen_optim, m, scene, store, e, PROFILE_ITERS),
+            PROFILE_ITERS)
+    kernels["map_crop"]["bf16_launches"] = launches["map_crop"]
+    kernels["map_crop"]["bf16_shape"] = shapes
+    line["c_main_path"] = {
+        "B": B, "NA": NA, "FT": FT, "crop_px": MAP_PX, "iters": ITERS,
+        "turn_iters": TURN_ITERS, "bf16_iters_per_sec": its,
+        "f32_iters_per_sec": f32_its,
+        "phase6_f32_iters_per_sec": phase6_its,
+        "losses_first_last": [float(losses[0]), float(losses[-1])],
+        "launches": launches, "profile": split,
+        "profile_iters": PROFILE_ITERS}
+    del model
+    log(f"13c. bf16 main path: {its} it/s (f32 {f32_its} in turns); "
+        f"{split}")
+
+    out = os.path.join(ROOT, "build", "chip_smoke", "train_bf16")
+    argv = ["-c", os.path.join(ROOT, TRAIN_CFG), "--epochs", "1",
+            "--synth_scenes", str(BF16_TRAIN_SCENES), "--device", DEV,
+            "--out", out, "--bf16"]
+    pc = trt.parse_cfg(argv)
+    timings = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero(counters)
+    quiet(trt.main, argv, timings)
+    launches = counted(counters)
+    peak = torch.cuda.max_memory_allocated()
+    steps = (len(timings["train_steps"])
+             + -(-BF16_TRAIN_SCENES // pc.batch_size))
+    expected = dict.fromkeys(launches, 0)
+    expected.update(map_crop=steps * (1 + 2 * pc.future_len),
+                    footprint_coll_point=steps)
+    if launches != expected:
+        raise AssertionError(f"13c. bf16 training launches {launches}, "
+                             f"expected {expected}")
+    mets = (timings["train"][0], timings["val"][0])
+    if not all(np.isfinite(v) for m_ in mets for v in m_.values()):
+        raise AssertionError(f"13c. bf16 training metrics {mets}")
+    steady = sorted(timings["train_steps"][1:])
+    step_s = steady[len(steady) // 2]
+    ds, tstore, _, sn, an = load_environment(pc, "train", device=DEV)
+    nc = len(effective_categories(pc.agent_types, pc.reduce_cats))
+    tmodel = common.build_model(pc, sn, an, nc, "cpu")
+    common.load_checkpoint(tmodel, os.path.join(out, "checkpoints",
+                                                "latest_model"))
+    tmodel.to(DEV)
+    trainer = Trainer(tmodel, TRAIN_W, sn, an, lr=pc.lr)
+    batch = ds.get_batch(list(range(pc.batch_size)))
+    trainer.run_epoch([batch], tstore, 0.0)  # warm-up
+    prof = busy_share(torch, lambda: trainer.run_epoch([batch, batch],
+                                                       tstore, 0.0))
+    f32_train = training["b"]
+    line["c_training"] = {
+        "config": TRAIN_CFG, "flag": "--bf16",
+        "train_steps": len(timings["train_steps"]),
+        "val_steps": steps - len(timings["train_steps"]),
+        "bf16_steady_ms_per_step": 1e3 * step_s,
+        "f32_steady_ms_per_step": f32_train["steady_ms_per_step"],
+        "bf16_max_memory_allocated_gb": peak / 1e9,
+        "f32_max_memory_allocated_gb": f32_train["max_memory_allocated_gb"],
+        "bf16_profile_two_steps": prof,
+        "f32_profile_two_steps": f32_train["profile_two_steps"],
+        "train": mets[0], "val": mets[1], "launches": launches,
+        "reduced": {"epochs": "400 -> 1", "synth_scenes":
+                    f"96 -> {BF16_TRAIN_SCENES} a split"}}
+    del trainer, tmodel, ds, tstore
+    line["seconds"]["c"] = time.perf_counter() - t0
+    log(f"13c. bf16 training: {line['c_training']}")
+
+    # --- d. the main path at map_refresh_every = 2 ---------------------------
+    t0 = time.perf_counter()
+    model = build_model(torch, tm, norm, MAP_PX, map_refresh_every=2)
+    run(model, 2)
+    zero(counters)
+    _, result, _, _, losses, _ = run(model, ITERS)
+    launches = counted(counters)
+    want_k1 = 1 + (ITERS + 1) * FT // 2
+    if launches["map_crop"] != want_k1 or not bool(
+            torch.isfinite(losses).all() & torch.isfinite(result).all()):
+        raise AssertionError(f"13d. refresh 2: launches {launches}, "
+                             f"expected {want_k1} crops; losses {losses}")
+    k1_its, its2 = its_in_turns(torch, (f32_model, model), scene, store)
+    kernels["map_crop"]["refresh2_launches"] = launches["map_crop"]
+    line["d_refresh2"] = {"iters_per_sec": its2, "k1_iters_per_sec": k1_its,
+                          "launches": launches}
+    line["seconds"]["d"] = time.perf_counter() - t0
+    log(f"13d. map_refresh_every=2: {its2} it/s (k = 1 {k1_its} in turns), "
+        f"{launches}")
+    line["seconds"]["phase"] = sum(line["seconds"].values())
+    return line
+
+
 
 
 def main():
@@ -2405,6 +2744,11 @@ def main():
     training = training_phase(torch, np, tm, norm, card, counters, kernels,
                               refine_cfg)
     training["phase_seconds"] = time.perf_counter() - t0
+
+    # --- 13. the model options ------------------------------------------
+    options = options_phase(torch, np, tm, norm, rates, card, counters,
+                            kernels, (scene, store), model, its, training,
+                            cases[:1] + cases[2:])
     del model
     torch.cuda.empty_cache()
 
@@ -2427,6 +2771,7 @@ def main():
     print(json.dumps(refine_line))
     print(json.dumps(training))
     print(json.dumps(nusc))
+    print(json.dumps(options))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"main_path": "embed + open-loop adv optimization",
                       "B": B, "NA": NA, "FT": FT, "crop_px": MAP_PX,

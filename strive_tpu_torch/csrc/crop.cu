@@ -46,7 +46,15 @@
 // the threads launched and the waves they take, not the round trips
 // (PERF.md). 128 threads x 5 samples is the fastest launch shape measured
 // (tools/kernel_variants.py times the others).
+//
+// K1 also writes bfloat16, for the bf16 model (the JAX model's crop in its
+// compute dtype, strive_tpu/model/traffic_model.py:259-268). The values are
+// 0 and 1, exact in bf16, so that output is bit-exact against the plain
+// version cast to bf16. It halves the output bytes (16.8 MB at the main
+// path's shape, a ~5 us bound); the C == 4 NHWC store becomes one 8-byte
+// store of four bf16 a pixel, and the rest stores element by element.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -83,13 +91,50 @@ __device__ __forceinline__ long long clamp_map(long long m, int M) {
   return m < 0 ? 0 : (m >= M ? M - 1 : m);
 }
 
-template <bool kNHWC>
+// Bit c of b as 0 or 1 in the output type.
+template <typename T>
+__device__ __forceinline__ T bit_value(unsigned b, int c);
+
+template <>
+__device__ __forceinline__ float bit_value<float>(unsigned b, int c) {
+  return (float)((b >> c) & 1u);
+}
+
+constexpr unsigned kBf16One = 0x3F80u;  // the bits of bf16 1.0
+
+template <>
+__device__ __forceinline__ __nv_bfloat16 bit_value<__nv_bfloat16>(unsigned b,
+                                                                  int c) {
+  return __ushort_as_bfloat16((unsigned short)(((b >> c) & 1u) * kBf16One));
+}
+
+// The four channels of a C == 4 NHWC pixel in one store: 16 bytes of
+// float, 8 of bf16. The wrapper's allocation aligns `o` to that size.
+__device__ __forceinline__ void store4(float* o, unsigned b) {
+  *reinterpret_cast<float4*>(o) =
+      make_float4(bit_value<float>(b, 0), bit_value<float>(b, 1),
+                  bit_value<float>(b, 2), bit_value<float>(b, 3));
+}
+
+// Channels c and c + 1 as two bf16 in one word, channel c in the low half
+// (the lower address).
+__device__ __forceinline__ unsigned bf16_pair(unsigned b, int c) {
+  const unsigned lo = ((b >> c) & 1u) * kBf16One;
+  const unsigned hi = ((b >> (c + 1)) & 1u) * kBf16One;
+  return lo | (hi << 16);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* o, unsigned b) {
+  *reinterpret_cast<uint2*>(o) = make_uint2(bf16_pair(b, 0), bf16_pair(b, 2));
+}
+
+template <bool kNHWC, typename T>
 __global__ void __launch_bounds__(kThreads)
 map_crop_kernel(const uint8_t* __restrict__ packed, int M, int H, int W,
                 const float* __restrict__ dx, const float* __restrict__ pos,
                 const long long* __restrict__ mapix,
                 const float* __restrict__ lo, const float* __restrict__ wo,
-                int N, int L, int Wc, int C, float* __restrict__ out) {
+                int N, int L, int Wc, int C, T* __restrict__ out) {
   // the wrapper guarantees N * L * Wc < 2^31
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N * L * Wc) return;
@@ -110,19 +155,37 @@ map_crop_kernel(const uint8_t* __restrict__ packed, int M, int H, int W,
                                                  __ldg(dx + 2 * m + 1)));
 
   if (kNHWC) {
-    float* o = out + (long long)i * C;
+    T* o = out + (long long)i * C;
     if (C == 4) {
-      *reinterpret_cast<float4*>(o) =
-          make_float4((float)(b & 1u), (float)((b >> 1) & 1u),
-                      (float)((b >> 2) & 1u), (float)((b >> 3) & 1u));
+      store4(o, b);
     } else {
-      for (int c = 0; c < C; ++c) o[c] = (float)((b >> c) & 1u);
+      for (int c = 0; c < C; ++c) o[c] = bit_value<T>(b, c);
     }
   } else {
     const long long plane = (long long)L * Wc;
-    float* o = out + (long long)n * C * plane + (long long)l * Wc + w;
-    for (int c = 0; c < C; ++c) o[c * plane] = (float)((b >> c) & 1u);
+    T* o = out + (long long)n * C * plane + (long long)l * Wc + w;
+    for (int c = 0; c < C; ++c) o[c * plane] = bit_value<T>(b, c);
   }
+}
+
+template <typename T>
+cudaError_t launch_map_crop(const uint8_t* packed, int M, int H, int W,
+                            const float* dx, const float* pos,
+                            const long long* mapix, const float* lo,
+                            const float* wo, int N, int L, int Wc, int C,
+                            int nhwc, void* out, cudaStream_t s) {
+  const long long total = (long long)N * L * Wc;  // < 2^31 (wrapper)
+  if (total == 0) return cudaSuccess;
+  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
+  T* o = static_cast<T*>(out);
+  if (nhwc) {
+    map_crop_kernel<true, T><<<blocks, kThreads, 0, s>>>(
+        packed, M, H, W, dx, pos, mapix, lo, wo, N, L, Wc, C, o);
+  } else {
+    map_crop_kernel<false, T><<<blocks, kThreads, 0, s>>>(
+        packed, M, H, W, dx, pos, mapix, lo, wo, N, L, Wc, C, o);
+  }
+  return cudaGetLastError();
 }
 
 constexpr int kFootThreads = 128;  // threads per car
@@ -233,24 +296,20 @@ const char* strive_cuda_error(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// out: (N, L, Wc, C) for nhwc != 0, else (N, C, L, Wc); float32.
-// Returns the cudaError_t of the launch (0 = success).
+// out: (N, L, Wc, C) for nhwc != 0, else (N, C, L, Wc); bfloat16 for
+// bf16 != 0, else float32. Returns the cudaError_t of the launch (0 =
+// success).
 int strive_map_crop(const uint8_t* packed, int M, int H, int W,
                     const float* dx, const float* pos, const long long* mapix,
                     const float* lo, const float* wo, int N, int L, int Wc,
-                    int C, int nhwc, float* out, void* stream) {
-  const long long total = (long long)N * L * Wc;  // < 2^31 (wrapper)
-  if (total == 0) return (int)cudaSuccess;
-  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
+                    int C, int nhwc, int bf16, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nhwc) {
-    map_crop_kernel<true><<<blocks, kThreads, 0, s>>>(
-        packed, M, H, W, dx, pos, mapix, lo, wo, N, L, Wc, C, out);
-  } else {
-    map_crop_kernel<false><<<blocks, kThreads, 0, s>>>(
-        packed, M, H, W, dx, pos, mapix, lo, wo, N, L, Wc, C, out);
+  if (bf16) {
+    return (int)launch_map_crop<__nv_bfloat16>(
+        packed, M, H, W, dx, pos, mapix, lo, wo, N, L, Wc, C, nhwc, out, s);
   }
-  return (int)cudaGetLastError();
+  return (int)launch_map_crop<float>(packed, M, H, W, dx, pos, mapix, lo, wo,
+                                     N, L, Wc, C, nhwc, out, s);
 }
 
 // coll_pt: (P, 2) float32, valid: (P,) bool, frac: (P,) float32;

@@ -28,9 +28,10 @@ SOURCE = "crop"
 LAUNCHES = {"map_crop": 0, "footprint_coll_point": 0}
 
 _LIB = launch.Library(SOURCE, {
-    # packed, M, H, W, dx, pos, mapix, lo, wo, N, L, Wc, C, nhwc, out, stream
+    # packed, M, H, W, dx, pos, mapix, lo, wo, N, L, Wc, C, nhwc, bf16, out,
+    # stream
     "strive_map_crop": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _I, _P, _P],
+                        _I, _I, _P, _P],
     # packed, M, H, W, dx, cars, lw, mapix, lin_l, lin_w, P, L, Wg, bit,
     # coll_pt, valid, frac, stream
     "strive_footprint_coll_point": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
@@ -45,8 +46,14 @@ def _check_raster(packed, dx, device):
         raise ValueError("dx must have one row per map")
 
 
-def map_crop(packed, dx, pos, mapix, lo, wo, num_channels, layout="nhwc"):
-    """K1: oriented crops of the bit-packed raster, bits unpacked to float32.
+# the output types K1 writes
+CROP_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def map_crop(packed, dx, pos, mapix, lo, wo, num_channels, layout="nhwc",
+             dtype=torch.float32):
+    """K1: oriented crops of the bit-packed raster, bits unpacked to 0/1 in
+    float32 or bfloat16 (both exact).
 
     :param packed: (M, H, W) uint8, bit c = channel c
     :param dx: (M, 2) float32 meters per pixel
@@ -54,7 +61,8 @@ def map_crop(packed, dx, pos, mapix, lo, wo, num_channels, layout="nhwc"):
     :param mapix: (N,) int64 map of each pose
     :param lo, wo: (L,), (W,) float32 offsets (``queries.crop_offsets``)
     :param num_channels: C <= 8 channels to unpack
-    :return: (N, L, W, C) for 'nhwc', (N, C, L, W) for 'nchw'; float32
+    :param dtype: of the output, one of ``CROP_DTYPES``
+    :return: (N, L, W, C) for 'nhwc', (N, C, L, W) for 'nchw'; ``dtype``
     """
     device = pos.device
     _check_raster(packed, dx, device)
@@ -64,6 +72,8 @@ def map_crop(packed, dx, pos, mapix, lo, wo, num_channels, layout="nhwc"):
     launch.check("wo", wo, torch.float32, 1, device)
     if layout not in ("nhwc", "nchw"):
         raise ValueError(f"unknown layout {layout}")
+    if dtype not in CROP_DTYPES:
+        raise ValueError(f"map_crop writes float32 or bfloat16, not {dtype}")
     C = int(num_channels)
     if not 1 <= C <= 8:
         raise ValueError("num_channels must be in [1, 8]")
@@ -73,23 +83,24 @@ def map_crop(packed, dx, pos, mapix, lo, wo, num_channels, layout="nhwc"):
     if N * L * Wc >= 2 ** 31:
         raise ValueError("map_crop takes fewer than 2^31 crop pixels")
     shape = (N, L, Wc, C) if layout == "nhwc" else (N, C, L, Wc)
-    out = torch.empty(shape, dtype=torch.float32, device=device)
+    out = torch.empty(shape, dtype=dtype, device=device)
     if N * L * Wc == 0:
         return out
     M, H, W = packed.shape
     _LIB.launch(
         "strive_map_crop", packed.data_ptr(), M, H, W, dx.data_ptr(),
         pos.data_ptr(), mapix.data_ptr(), lo.data_ptr(), wo.data_ptr(), N, L,
-        Wc, C, int(layout == "nhwc"), out.data_ptr(), launch.stream(device))
+        Wc, C, int(layout == "nhwc"), int(dtype == torch.bfloat16),
+        out.data_ptr(), launch.stream(device))
     LAUNCHES["map_crop"] += 1
     return out
 
 
 def map_crop_plain(packed, dx, pos, mapix, lo, wo, num_channels,
-                   layout="nhwc"):
+                   layout="nhwc", dtype=torch.float32):
     """Plain PyTorch version of :func:`map_crop` (any device)."""
     return queries.crop_plain(packed, dx, pos, mapix, lo, wo, num_channels,
-                              layout)
+                              layout, dtype)
 
 
 def footprint_coll_point(packed, dx, cars, lw, mapix, lin_l, lin_w, bit=0):

@@ -121,13 +121,14 @@ def _pixel_lookup(maps, dx, xys, mapixes):
 
 
 def crop_plain(packed, dx, pos, mapixes, lo, wo, num_channels,
-               layout="nchw"):
+               layout="nchw", dtype=torch.float32):
     """Plain version of the map crop (the oracle of the ``map_crop`` kernel).
 
     :param packed: (M, H, W) uint8 bit-packed raster (bit c = channel c)
     :param pos: (B, 4) UNNORMALIZED (x, y, hx, hy)
     :param lo, wo: (L,), (W,) offsets from :func:`crop_offsets`
-    :return: (B, C, L, W) float32 ((B, L, W, C) for 'nhwc')
+    :param dtype: of the output; its 0/1 values are exact in any float type
+    :return: (B, C, L, W) ((B, L, W, C) for 'nhwc') of ``dtype``
     """
     xys = rotate_grid(lo[None, :, None], wo[None, None, :], pos[:, :2],
                       pos[:, 2:4])
@@ -138,11 +139,11 @@ def crop_plain(packed, dx, pos, mapixes, lo, wo, num_channels,
         obs = (bits[..., None] >> shifts) & 1
     else:
         obs = (bits[:, None] >> shifts[None, :, None, None]) & 1
-    return obs.float()
+    return obs.to(dtype)
 
 
 def get_map_crop(packed, dx, pos, mapixes, bounds, num_channels, L=256,
-                 W=256, layout="nchw"):
+                 W=256, layout="nchw", dtype=torch.float32):
     """Oriented local map crop around each pose.
 
     :param packed: (M, H, W) uint8 bit-packed raster (bit c = channel c)
@@ -151,7 +152,8 @@ def get_map_crop(packed, dx, pos, mapixes, bounds, num_channels, L=256,
     :param bounds: [low_l, low_w, high_l, high_w] meters
     :param num_channels: channels C to unpack
     :param layout: 'nchw' (reference layout) or 'nhwc' (channels-last)
-    :return: (B, C, L, W) float32 ((B, L, W, C) for 'nhwc')
+    :param dtype: float32 or bfloat16 (the bf16 model's compute dtype)
+    :return: (B, C, L, W) ((B, L, W, C) for 'nhwc') of ``dtype``
     """
     lo, wo = crop_offsets(bounds, L, W, pos.device)
     if pos.is_cuda:
@@ -159,8 +161,9 @@ def get_map_crop(packed, dx, pos, mapixes, bounds, num_channels, L=256,
 
         return crop_kernel.map_crop(packed, dx, pos.contiguous(),
                                     mapixes.long().contiguous(), lo, wo,
-                                    num_channels, layout)
-    return crop_plain(packed, dx, pos, mapixes, lo, wo, num_channels, layout)
+                                    num_channels, layout, dtype)
+    return crop_plain(packed, dx, pos, mapixes, lo, wo, num_channels, layout,
+                      dtype)
 
 
 def check_on_layer(drivables, dx, cars, lw, mapixes, grid=ON_LAYER_GRID):

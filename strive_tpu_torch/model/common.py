@@ -7,6 +7,14 @@ the Flax tree (``fc{i}``, ``ln{i}``, ``layer{l}.ih``/``hh``) so that
 MLP matches reference ``models/common.py:8-44``: Linear, then for every
 subsequent layer (LayerNorm over the previous width -> nonlinearity ->
 Linear).
+
+A compute ``dtype`` (bf16) follows Flax's policy, not ``torch.autocast``'s:
+the parameters stay float32 and each layer casts inside ``forward``, so
+gradients land on the float32 leaves. ``nn.Dense(dtype=bf16)`` casts input,
+kernel and bias, and adds the bias in bf16 after the product
+(:func:`dense`); ``nn.LayerNorm(dtype=bf16)`` / ``nn.GroupNorm`` take their
+statistics and normalize in float32 and cast the output (:func:`norm`,
+``flax/linen/normalization.py`` ``_compute_stats`` / ``_normalize``).
 """
 
 from __future__ import annotations
@@ -18,16 +26,46 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def dense(lin, x, dtype=None):
+    """``lin`` (a Linear or Conv2d) applied as Flax's ``Dense`` / ``Conv``
+    with compute ``dtype``: None is the float32 layer itself; otherwise
+    input, weight and bias in ``dtype``, the product, then the bias add,
+    as two ops."""
+    if dtype is None:
+        return lin(x)
+    w, b = lin.weight.to(dtype), lin.bias.to(dtype)
+    if isinstance(lin, nn.Conv2d):
+        return F.conv2d(x.to(dtype), w, stride=lin.stride) + b[:, None, None]
+    return F.linear(x.to(dtype), w) + b
+
+
+def norm(layer, x, dtype=None):
+    """A LayerNorm or GroupNorm applied as Flax's with compute ``dtype``:
+    None is the float32 layer itself; otherwise statistics and the
+    normalization in float32 on the upcast input, the output in ``dtype``."""
+    if dtype is None:
+        return layer(x)
+    if isinstance(layer, nn.GroupNorm):
+        y = F.group_norm(x.float(), layer.num_groups, layer.weight,
+                         layer.bias, layer.eps)
+    else:
+        y = F.layer_norm(x.float(), layer.normalized_shape, layer.weight,
+                         layer.bias, layer.eps)
+    return y.to(dtype)
+
+
 class MLP(nn.Module):
     """Reference-layout MLP.
 
     :param in_dim: input width (Flax infers it; torch needs it)
     :param layers: output widths, e.g. (128, 128, out)
+    :param dtype: compute dtype (None: float32); the output is in it
     """
 
-    def __init__(self, in_dim: int, layers: Sequence[int]):
+    def __init__(self, in_dim: int, layers: Sequence[int], dtype=None):
         super().__init__()
         self.n = len(layers)
+        self.dtype = dtype
         self.fc0 = nn.Linear(in_dim, layers[0])
         for i in range(1, self.n):
             # epsilon matches torch nn.LayerNorm (1e-5), as in the Flax model
@@ -35,11 +73,11 @@ class MLP(nn.Module):
             setattr(self, f"fc{i}", nn.Linear(layers[i - 1], layers[i]))
 
     def forward(self, x):
-        x = self.fc0(x)
+        x = dense(self.fc0, x, self.dtype)
         for i in range(1, self.n):
-            x = getattr(self, f"ln{i}")(x)
+            x = norm(getattr(self, f"ln{i}"), x, self.dtype)
             x = F.relu(x)
-            x = getattr(self, f"fc{i}")(x)
+            x = dense(getattr(self, f"fc{i}"), x, self.dtype)
         return x
 
 

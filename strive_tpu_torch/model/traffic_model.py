@@ -12,9 +12,21 @@ the cached features are repeated NS times, decoded as B*NS scenes, and
 unfolded. This is exact, because the GNN only mixes agents of one scene,
 and every rollout step crops all B*NS*NA poses in one launch.
 
-Options of the JAX model that this port does not run yet raise
-``NotImplementedError``: the 'gru' trajectory encoder, a bf16
-``compute_dtype``, ``map_refresh_every > 1`` and ``output_bicycle=False``.
+The JAX model's options are all here:
+
+- ``compute_dtype='bfloat16'``: the map encoder's convs and GroupNorms and
+  the decoder's GNN compute in bf16 with float32 parameters, as Flax's
+  ``dtype`` does (``model/common.py``); the map crop is written in bf16 by
+  the crop kernel itself and feeds the conv stack with no cast pass.
+  Everything else (prior and posterior nets, trajectory encoders, decoder
+  memory, bicycle step) stays float32;
+- ``output_bicycle=False``: the decoder emits the local pose (x, y, hx,
+  hy) of the next step directly, instead of bicycle controls;
+- ``traj_encoder='gru'``: 4-layer GRUs over the per-step features in
+  place of the flattening MLPs;
+- ``map_refresh_every=k``: the map is re-encoded after every k-th rollout
+  step only (k = 1 when k does not divide the rollout length), so a
+  decode crops FT / k times.
 """
 
 from __future__ import annotations
@@ -26,7 +38,7 @@ import torch
 from torch import nn
 
 from ..dynamics import BikeParams, NUSC_BIKE_PARAMS, bike_step
-from ..geometry import transform2frame
+from ..geometry import normalize_heading, transform2frame
 from ..losses.common import log_normal
 from ..maps.queries import get_map_crop
 from ..maps.store import DEFAULT_BOUNDS
@@ -98,14 +110,13 @@ class TrafficModel(nn.Module):
                  num_memory_layers=3, compute_dtype=None,
                  map_refresh_every=1, map_channels=4, device="cuda"):
         super().__init__()
-        if traj_encoder != "mlp":
-            raise NotImplementedError("only the 'mlp' trajectory encoder is ported")
-        if compute_dtype is not None:
-            raise NotImplementedError("only float32 compute is ported")
-        if map_refresh_every != 1:
-            raise NotImplementedError("only map_refresh_every=1 is ported")
-        if not output_bicycle:
-            raise NotImplementedError("only the bicycle output is ported")
+        if traj_encoder not in ("mlp", "gru"):
+            raise ValueError(f"unknown traj encoder {traj_encoder}")
+        cdt = None if compute_dtype is None else getattr(torch, compute_dtype)
+        self.compute_dtype = cdt
+        self.output_bicycle = output_bicycle
+        self.traj_encoder = traj_encoder
+        self.map_refresh_every = int(map_refresh_every)
         self.npast, self.nfuture = npast, nfuture
         self.map_obs_size_pix = map_obs_size_pix
         self.nclasses = nclasses
@@ -121,11 +132,17 @@ class TrafficModel(nn.Module):
         nc = nclasses
         self.map_encoder = MapEncoder(map_channels, map_obs_size_pix,
                                       map_feat_size, conv_kernels,
-                                      conv_strides, conv_filters)
-        self.past_encoder = MLP(npast * 9 + nc,
-                                (128, 128, 128, past_feat_size))
-        self.future_encoder = MLP(nfuture * 9 + nc,
-                                  (128, 128, 128, future_feat_size))
+                                      conv_strides, conv_filters, dtype=cdt)
+        if traj_encoder == "mlp":
+            self.past_encoder = MLP(npast * 9 + nc,
+                                    (128, 128, 128, past_feat_size))
+            self.future_encoder = MLP(nfuture * 9 + nc,
+                                      (128, 128, 128, future_feat_size))
+        else:  # names of the Flax tree: past_gru, past_out, ...
+            self.past_gru = StackedGRU(9 + nc, 128, 4)
+            self.past_out = nn.Linear(128, past_feat_size)
+            self.future_gru = StackedGRU(9 + nc, 128, 4)
+            self.future_out = nn.Linear(128, future_feat_size)
         msg = 2 * past_feat_size
         self.prior_net = SceneInteractionNet(
             past_feat_size + map_feat_size + nc, nc, msg, 2 * latent_size)
@@ -133,7 +150,8 @@ class TrafficModel(nn.Module):
             past_feat_size + future_feat_size + map_feat_size + nc, nc, msg,
             2 * latent_size)
         self.decoder_net = SceneInteractionNet(
-            past_feat_size + map_feat_size + nc + latent_size + 2, nc, 64, 2)
+            past_feat_size + map_feat_size + nc + latent_size + 2, nc, 64,
+            2 if output_bicycle else 4, dtype=cdt)
         self.decoder_memory = StackedGRU(4, past_feat_size, num_memory_layers)
 
         f32 = dict(dtype=torch.float32)
@@ -169,17 +187,21 @@ class TrafficModel(nn.Module):
         B, NA, _ = pos.shape
         pos_unnorm = self.state_unnorm(pos).reshape(B * NA, 4)
         mapixes = torch.repeat_interleave(map_idx, NA)
+        # the crop comes out in the compute dtype (0/1 values: exact)
         crop = get_map_crop(
             map_store.packed, map_store.dx, pos_unnorm, mapixes,
             self.map_bounds, self.map_channels, L=self.map_obs_size_pix,
-            W=self.map_obs_size_pix, layout="nhwc")
+            W=self.map_obs_size_pix, layout="nhwc",
+            dtype=self.compute_dtype or torch.float32)
         # NCHW view of the NHWC crop: channels_last memory, no copy
         feat = self.map_encoder(crop.permute(0, 3, 1, 2))
         return feat.reshape(B, NA, self.map_feat_size)
 
-    def _local_traj_feat(self, frame, traj, vis, lw, sem, encoder):
+    def _local_traj_feat(self, frame, traj, vis, lw, sem, name):
         """Transform traj into ``frame``, zero invisible steps, append
-        vis + lw, flatten and encode."""
+        vis + lw, then encode with the ``name`` ('past' or 'future') MLP
+        (flattened) or GRU (step by step from zero states, the output layer
+        on the last output)."""
         B, NA, T, _ = traj.shape
         local_kin = transform2frame(frame.reshape(B * NA, 4),
                                     traj[..., :4].reshape(B * NA, T, 4)
@@ -189,17 +211,26 @@ class TrafficModel(nn.Module):
         local = torch.cat([local, vis[..., None]], dim=-1)
         att = lw[:, :, None, :].expand(B, NA, T, 2)
         enc_in = torch.cat([local, att], dim=-1)  # (B, NA, T, 9)
-        return encoder(torch.cat([enc_in.reshape(B, NA, T * 9), sem], dim=-1))
+        if self.traj_encoder == "mlp":
+            return getattr(self, f"{name}_encoder")(
+                torch.cat([enc_in.reshape(B, NA, T * 9), sem], dim=-1))
+        gru = getattr(self, f"{name}_gru")
+        hs = enc_in.new_zeros((gru.num_layers, B, NA, 128))
+        xs = torch.cat([enc_in, sem[:, :, None, :].expand(
+            B, NA, T, sem.shape[-1])], dim=-1)
+        for t in range(T):
+            out, hs = gru(xs[:, :, t], hs)
+        return getattr(self, f"{name}_out")(out)
 
     def encode_past(self, scene: SceneBatch):
         return self._local_traj_feat(scene.past[:, :, -1, :4], scene.past,
                                      scene.past_vis, scene.lw, scene.sem,
-                                     self.past_encoder)
+                                     "past")
 
     def encode_future(self, scene: SceneBatch):
         return self._local_traj_feat(scene.past[:, :, -1, :4], scene.future,
                                      scene.future_vis, scene.lw, scene.sem,
-                                     self.future_encoder)
+                                     "future")
 
     # ---- latent heads ----------------------------------------------------
     def prior(self, scene: SceneBatch, map_feat, past_feat):
@@ -227,11 +258,16 @@ class TrafficModel(nn.Module):
             injected into agent 0 of each scene. The ego's recorded output
             stays the model's own prediction; the next step's GNN pose, map
             crop and GRU-memory input see the external future; the bicycle
-            state keeps the model's own rollout (reference :667-680).
+            state keeps the model's own rollout (reference :667-680), the
+            direct output (``output_bicycle=False``) continues from the
+            injected pose.
         :return: (B, NA, FT, 4) NORMALIZED global-frame trajectories.
         """
         B, NA = z.shape[:2]
         FT = self.nfuture if nfuture is None else nfuture
+        k = self.map_refresh_every
+        if FT % k != 0:
+            k = 1  # per-step refresh when k does not divide FT
         sem, lw, mask = scene.sem, scene.lw, scene.mask
         veh_len = self.att_unnorm(lw)[..., 0]
 
@@ -245,14 +281,22 @@ class TrafficModel(nn.Module):
             dec_in = torch.cat([cur_past_feat, cur_map_feat, sem, z, lw],
                                dim=-1)
             dec_out = self.decoder_net(dec_in, pos, sem, mask)
-            new_bike = bike_step(self.state_unnorm(prev_state),
-                                 dec_out[..., 0], dec_out[..., 1], veh_len,
-                                 self.bike)
-            cur_bike_state = self.state_norm_(new_bike)
-            cur_global = cur_bike_state[..., :4]
-            cur_local = transform2frame(
-                prev_state[..., :4].reshape(B * NA, 4),
-                cur_global.reshape(B * NA, 1, 4))[:, 0].reshape(B, NA, 4)
+            prev_pose = prev_state[..., :4].reshape(B * NA, 4)
+            if self.output_bicycle:
+                new_bike = bike_step(self.state_unnorm(prev_state),
+                                     dec_out[..., 0], dec_out[..., 1],
+                                     veh_len, self.bike)
+                next_prev = self.state_norm_(new_bike)
+                cur_global = next_prev[..., :4]
+                cur_local = transform2frame(
+                    prev_pose, cur_global.reshape(B * NA, 1, 4)
+                )[:, 0].reshape(B, NA, 4)
+            else:
+                cur_local = normalize_heading(dec_out)
+                cur_global = transform2frame(
+                    prev_pose, cur_local.reshape(B * NA, 1, 4), inverse=True
+                )[:, 0].reshape(B, NA, 4)
+                next_prev = cur_global
             outs.append(cur_global)  # recorded BEFORE external injection
 
             if ext_future is not None:
@@ -262,11 +306,14 @@ class TrafficModel(nn.Module):
                 cur_global = torch.cat([ext_t[:, None], cur_global[:, 1:]], 1)
                 cur_local = torch.cat([inj_local_ego[:, None],
                                        cur_local[:, 1:]], 1)
+                if not self.output_bicycle:
+                    next_prev = cur_global
 
             cur_past_feat, mem = self.decoder_memory(cur_local, mem)
-            cur_map_feat = self.encode_map(cur_global.detach(),
-                                           scene.map_idx, map_store)
-            prev_state, pos = cur_bike_state, cur_global
+            if t % k == k - 1:
+                cur_map_feat = self.encode_map(cur_global.detach(),
+                                               scene.map_idx, map_store)
+            prev_state, pos = next_prev, cur_global
         return torch.stack(outs, dim=2)
 
     # ---- public API ------------------------------------------------------

@@ -27,8 +27,11 @@ success check -> solution optimization -> scenario JSONs in the
   ``strive_tpu_torch.scripts.preprocess_nuscenes``; ``--viz`` renders each
   scene before, after and (when solved) with its solution under
   ``<out>/viz_results/<folder>/`` (``viz.py``, needs matplotlib).
+- ``--bf16`` computes the map encoder and the decoder's GNN in bfloat16
+  and ``--no_output_bicycle`` has the decoder emit poses directly, as in
+  ``scripts/train_traffic.py``'s ``build_model``.
 - Not ported yet, and raising ``NotImplementedError``: ``--mesh_devices >
-  1`` (P11), ``--bf16`` (ROADMAP queue 1b).
+  1`` (P11).
 """
 
 from __future__ import annotations
@@ -139,9 +142,6 @@ def check_ported(cfg):
     naming the step of ROADMAP that ports it."""
     if cfg.mesh_devices > 1:
         raise NotImplementedError("--mesh_devices > 1: multi-GPU is P11's")
-    if cfg.bf16:
-        raise NotImplementedError("--bf16: bf16 compute is ROADMAP queue "
-                                  "1b's")
 
 
 def _take_embed(emb, ids):

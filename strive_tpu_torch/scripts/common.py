@@ -11,9 +11,8 @@ from ..utils.checkpoint import load_state
 
 def build_model(cfg, state_norm, att_norm, nc, device):
     """The traffic model a config describes (``scripts/train_traffic.py:45-58``),
-    on ``device``. ``--bf16`` raises (queue 1b)."""
-    if getattr(cfg, "bf16", False):
-        raise NotImplementedError("--bf16 is not ported yet (ROADMAP queue 1b)")
+    on ``device``: ``--bf16`` computes in bfloat16, ``--no_output_bicycle``
+    has the decoder emit poses directly."""
     norm = NormConfig.from_normalizers(state_norm, att_norm)
     return TrafficModel(
         npast=cfg.past_len, nfuture=cfg.future_len,
@@ -25,6 +24,7 @@ def build_model(cfg, state_norm, att_norm, nc, device):
         conv_kernels=tuple(cfg.conv_kernel_list),
         conv_strides=tuple(cfg.conv_stride_list),
         conv_filters=tuple(cfg.conv_filter_list),
+        compute_dtype="bfloat16" if getattr(cfg, "bf16", False) else None,
         map_channels=num_channels(cfg.map_layers), device=device,
     )
 

@@ -21,8 +21,9 @@ ends), a validation pass every ``--val_every`` epochs that writes
 - ``--data_version mini``/``trainval`` reads the ETL output of
   ``strive_tpu_torch.scripts.preprocess_nuscenes``; ``--scenario_dir``
   appends saved scenarios to the training split.
-- Not ported yet, and raising ``NotImplementedError``: ``--bf16``
-  (ROADMAP queue 1b).
+- ``--bf16`` computes the map encoder and the decoder's GNN in bfloat16
+  (the parameters and the optimizer stay float32); ``--no_output_bicycle``
+  has the decoder emit poses directly.
 """
 
 from __future__ import annotations

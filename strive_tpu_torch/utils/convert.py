@@ -8,7 +8,8 @@ name: a Flax leaf ``a/b/kernel`` becomes ``a.b.weight`` and so on.
 - Conv kernel HWIO -> Conv2d weight OIHW
 - LayerNorm / GroupNorm ``scale`` -> ``weight``; every ``bias`` -> ``bias``
 - GRU ``ih``/``hh`` Dense layers map like any Dense (gate order r, z, n is
-  the same on both sides)
+  the same on both sides); the 'gru' trajectory encoders' ``past_gru``,
+  ``past_out``, ``future_gru`` and ``future_out`` are named as in Flax
 - the MapEncoder's final Dense keeps its rows: the port flattens the last
   conv activation in NHWC order, as Flax does (``model/cnn.py``)
 
@@ -142,8 +143,8 @@ def convert_traffic_model_state_dict(sd, model):
     """Reference TrafficModel state dict -> the port's state dict.
 
     :param sd: {reference name: torch tensor or numpy array}
-    :param model: the port's ``TrafficModel`` (for its conv geometry and
-        GRU depth; the 'mlp' trajectory encoders, the only ones ported)
+    :param model: the port's ``TrafficModel`` (for its conv geometry, GRU
+        depth and trajectory encoder)
     :return: {port name: float32 tensor} for ``model.load_state_dict``
     """
     sd = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
@@ -161,7 +162,13 @@ def convert_traffic_model_state_dict(sd, model):
         "decoder_net": convert_interaction_net(sd, "decoder_net"),
         "decoder_memory": convert_gru(sd, "decoder_memory",
                                       model.num_memory_layers),
-        "past_encoder": convert_mlp(sd, "past_encoder", 4),
-        "future_encoder": convert_mlp(sd, "future_encoder", 4),
     }
+    if model.traj_encoder == "mlp":
+        tree["past_encoder"] = convert_mlp(sd, "past_encoder", 4)
+        tree["future_encoder"] = convert_mlp(sd, "future_encoder", 4)
+    else:  # reference nn.GRU(num_layers=4) encoders and their out layers
+        tree["past_gru"] = convert_gru(sd, "past_encoder", 4)
+        tree["past_out"] = _lin(sd, "past_out_layer")
+        tree["future_gru"] = convert_gru(sd, "future_encoder", 4)
+        tree["future_out"] = _lin(sd, "future_out_layer")
     return params_from_flax(tree)

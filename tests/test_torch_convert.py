@@ -6,11 +6,14 @@ A state dict with the reference STRIVE TrafficModel's key names and shapes
 numpy values; the port's ``convert_traffic_model_state_dict`` must give
 exactly ``params_from_flax(strive_tpu's convert_traffic_model_state_dict)``.
 Then ``convert_ref_ckpt`` writes a port checkpoint from a ``.pth`` of such
-a state dict, and ``adv_scenario_gen --ckpt`` reads it on the CPU.
+a state dict, and ``adv_scenario_gen --ckpt`` reads it on the CPU. The
+'gru' trajectory encoders (reference ``past_encoder``/``future_encoder``
+``nn.GRU`` of 4 layers, ``past_out_layer``, ``future_out_layer``) go
+through both converters too.
 """
 
+import dataclasses
 import os
-import re
 
 import numpy as np
 import jax
@@ -18,7 +21,11 @@ import pytest
 import torch
 
 from helpers import init_model
-from torch_helpers import port_model
+from torch_helpers import (n, port_model, reference_state_dict,
+                           scene_to_torch)
+
+from strive_tpu.model.traffic_model import init_model_params
+from strive_tpu_torch.maps import synthetic_map_store as t_store
 
 from strive_tpu.utils.convert import (
     convert_traffic_model_state_dict as j_convert)
@@ -29,41 +36,21 @@ from strive_tpu_torch.utils.convert import (convert_traffic_model_state_dict,
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _reference_name(name):
-    """The reference's name of a port parameter (the converter's inverse)."""
-    m = re.fullmatch(r"map_encoder\.conv(\d+)\.(\w+)", name)
-    if m:
-        return f"map_conv.{3 * int(m[1])}.{m[2]}"
-    m = re.fullmatch(r"map_encoder\.gn(\d+)\.(\w+)", name)
-    if m:
-        return f"map_conv.{3 * int(m[1]) + 1}.{m[2]}"
-    if name.startswith("map_encoder.out."):
-        return "map_feature." + name.split(".")[-1]
-    m = re.fullmatch(r"decoder_memory\.layer(\d+)\.(ih|hh)\.(\w+)", name)
-    if m:
-        return f"decoder_memory.{m[3]}_{m[2]}_l{m[1]}"
-    name = name.replace(".conv0.", ".msg.0.")
-    m = re.fullmatch(r"(.*)\.(fc|ln)(\d+)\.(\w+)", name)
-    i = int(m[3])
-    idx = 0 if i == 0 else (3 * i - 2 if m[2] == "ln" else 3 * i)
-    return f"{m[1]}.net.{idx}.{m[4]}"
-
-
-def reference_state_dict(port, seed=0):
-    """Seeded values under the reference's names, in its shapes (the port's
-    shapes: Linear (out, in), Conv2d OIHW, the flatten Linear's columns in
-    another order of the same width)."""
-    rng = np.random.default_rng(seed)
-    return {_reference_name(k): torch.from_numpy(
-                rng.normal(size=tuple(v.shape)).astype(np.float32))
-            for k, v in port.state_dict().items()}
-
-
 @pytest.fixture(scope="module")
 def models():
     """strive_tpu's tiny model and the port's of the same config."""
     model, params, _, _ = init_model()
     return model, port_model(model, params, 3)
+
+
+@pytest.fixture(scope="module")
+def gru_models():
+    """The tiny model with the 'gru' trajectory encoders, both packages'
+    (the port's from the Flax tree), and the scene it was made on."""
+    model, _, scene, store = init_model()
+    model = dataclasses.replace(model, traj_encoder="gru")
+    params = init_model_params(model, scene, store, jax.random.PRNGKey(3))
+    return model, params, port_model(model, params, 3), scene, store
 
 
 def test_reference_names_cover_the_model(models):
@@ -129,3 +116,38 @@ def test_converted_checkpoint_loads_in_adv_scenario_gen(tmp_path):
     assert stats["candidates"] == 2
     with open(run / "adv_gen_log.txt") as f:
         assert f"Loaded checkpoint {path}" in f.read()
+
+
+def test_gru_encoder_flax_tree_loads_and_matches(gru_models):
+    """The Flax tree's past_gru / past_out / future_gru / future_out load
+    by name; the posterior-mean forward then agrees with strive_tpu's at
+    tests/test_torch_model.py's tolerance (atol 1e-4)."""
+    model, params, port, scene, store = gru_models
+    assert {"past_gru", "past_out", "future_gru", "future_out"} <= set(
+        params["params"])
+    assert not hasattr(port, "past_encoder")
+    want = jax.jit(lambda p: model.apply(
+        p, scene, store, jax.random.PRNGKey(0), use_post_mean=True,
+        method="forward"))(params)
+    ts = t_store(num_maps=2, size_px=512, channels=3, device="cpu")
+    with torch.no_grad():
+        got = port(scene_to_torch(scene), ts, use_post_mean=True)
+    for k in ("future_pred", "posterior_out", "prior_out"):
+        for a, b in zip(jax.tree_util.tree_leaves(got[k]),
+                        jax.tree_util.tree_leaves(want[k])):
+            np.testing.assert_allclose(n(a), n(b), rtol=0, atol=1e-4,
+                                       err_msg=k)
+
+
+def test_gru_encoder_state_dict_converts_as_strive_tpu(gru_models):
+    model, _, port, _, _ = gru_models
+    sd = reference_state_dict(port, 4)
+    assert {"past_encoder.weight_ih_l3", "future_encoder.bias_hh_l0",
+            "past_out_layer.weight", "future_out_layer.bias"} <= set(sd)
+    want = params_from_flax(jax.tree_util.tree_map(np.asarray,
+                                                   j_convert(sd, model)))
+    got = convert_traffic_model_state_dict(sd, port)
+    assert sorted(got) == sorted(want) == sorted(port.state_dict())
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=0, msg=k)
+    port.load_state_dict(got)

@@ -5,6 +5,10 @@ it runs on a machine that has only PyTorch. Run on the card with
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
+K1 writes float32 and, for the bf16 model, bfloat16: the bf16 crops are
+held bit for bit against the plain version's bf16 output (0 and 1 are
+exact in both types).
+
 Tolerances: crops, ``valid`` and ``frac`` are exact (the kernels repeat the
 plain versions' float32 arithmetic op for op, without FMA contraction).
 ``coll_pt`` is a mean of up to 624 float32 coordinates: the plain version
@@ -50,16 +54,21 @@ def _poses(rng, N, lo, hi, unit=True):
     return np.concatenate([xy, h], 1).astype(np.float32)
 
 
-def _crop_both(store, pos, mapix, bounds, L, layout, C=None):
+def _crop_both(store, pos, mapix, bounds, L, layout, C=None,
+               dtype=torch.float32):
     C = store.C if C is None else C
     lo, wo = queries.crop_offsets(bounds, L, L, pos.device)
     args = (store.packed, store.dx, pos, mapix, lo, wo, C, layout)
-    return crop_kernel.map_crop(*args), crop_kernel.map_crop_plain(*args)
+    got = crop_kernel.map_crop(*args, dtype)
+    assert got.dtype == dtype
+    return got, crop_kernel.map_crop_plain(*args, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("layout", ["nhwc", "nchw"])
 @pytest.mark.parametrize("case", ["interior", "edges", "nan", "small"])
-def test_map_crop_matches_plain(dev, store, layout, case):
+def test_map_crop_matches_plain(dev, store, layout, case, dtype):
     rng = np.random.default_rng(1)
     bounds, L = DEFAULT_BOUNDS, 256
     if case == "interior":  # the main path's shape: 32 agents
@@ -76,7 +85,8 @@ def test_map_crop_matches_plain(dev, store, layout, case):
         bounds, L = (-4.0, -8.0, 12.0, 8.0), 64
     pos = torch.from_numpy(pos).to(dev)
     mapix = torch.from_numpy(rng.integers(0, 2, len(pos))).to(dev)
-    got, ref = _crop_both(store, pos, mapix, bounds, L, layout)
+    got, ref = _crop_both(store, pos, mapix, bounds, L, layout,
+                          dtype=dtype)
     torch.cuda.synchronize()
     assert got.shape == ref.shape
     assert torch.equal(got, ref)
@@ -89,8 +99,20 @@ def test_map_crop_general_channel_count(dev):
     pos = torch.from_numpy(_poses(rng, 8, 30.0, 120.0)).to(dev)
     mapix = torch.from_numpy(rng.integers(0, 2, 8)).to(dev)
     for layout in ("nhwc", "nchw"):
-        got, ref = _crop_both(st, pos, mapix, DEFAULT_BOUNDS, 256, layout)
-        assert torch.equal(got, ref)
+        for dtype in (torch.float32, torch.bfloat16):
+            got, ref = _crop_both(st, pos, mapix, DEFAULT_BOUNDS, 256,
+                                  layout, dtype=dtype)
+            assert torch.equal(got, ref)
+
+
+def test_map_crop_refuses_other_output_types(dev, store):
+    rng = np.random.default_rng(6)
+    pos = torch.from_numpy(_poses(rng, 2, 150.0, 360.0)).to(dev)
+    mapix = torch.zeros(2, dtype=torch.long, device=dev)
+    lo, wo = queries.crop_offsets(DEFAULT_BOUNDS, 64, 64, dev)
+    with pytest.raises(ValueError):
+        crop_kernel.map_crop(store.packed, store.dx, pos, mapix, lo, wo, 4,
+                             "nhwc", torch.float16)
 
 
 @pytest.mark.parametrize("P,lw_hi,unit_h,size_px", [
@@ -208,8 +230,10 @@ def test_map_crop_nusc_store_matches_plain(nusc, layout):
     store, (k1_nhwc, k1_nchw, _) = nusc
     args = k1_nhwc if layout == "nhwc" else k1_nchw
     got, ref = crop_kernel.map_crop(*args), crop_kernel.map_crop_plain(*args)
+    bf = crop_kernel.map_crop(*args, torch.bfloat16)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+    assert torch.equal(bf, crop_kernel.map_crop_plain(*args, torch.bfloat16))
     assert float(ref.sum()) > 0
 
 
@@ -224,13 +248,14 @@ def test_cuda_dispatch_launches_the_kernels(dev, store):
     mapix = torch.zeros(4, dtype=torch.long, device=dev)
     before = dict(crop_kernel.LAUNCHES)
     crop = queries.get_map_crop(store.packed, store.dx, pos, mapix,
-                                DEFAULT_BOUNDS, store.C, layout="nhwc")
+                                DEFAULT_BOUNDS, store.C, layout="nhwc",
+                                dtype=torch.bfloat16)
     queries.get_coll_point(store.packed, store.dx, pos,
                            torch.full((4, 2), 3.0, device=dev), mapix)
     assert crop_kernel.LAUNCHES["map_crop"] == before["map_crop"] + 1
     assert (crop_kernel.LAUNCHES["footprint_coll_point"]
             == before["footprint_coll_point"] + 1)
-    assert crop.shape == (4, 256, 256, 4)
+    assert crop.shape == (4, 256, 256, 4) and crop.dtype == torch.bfloat16
     # no fallback: a CUDA call with a raster the kernel does not take raises
     with pytest.raises(ValueError):
         queries.get_map_crop(store.packed.float(), store.dx, pos, mapix,

@@ -202,14 +202,3 @@ def test_forward_with_noise_passed_in(tiny):
     for k in ("prior_out", "posterior_out"):
         np.testing.assert_allclose(n(to[k][1]), n(jo[k][1]), **MODEL)
 
-
-def test_unported_options_raise(tiny):
-    model, _, _, _, _, _ = tiny
-    from strive_tpu_torch.model import traffic_model as ttm
-
-    base = dict(npast=4, nfuture=6, map_obs_size_pix=64, nclasses=2,
-                norm=ttm.NormConfig(*model.norm), device="cpu")
-    for kw in (dict(traj_encoder="gru"), dict(compute_dtype="bfloat16"),
-               dict(map_refresh_every=2), dict(output_bicycle=False)):
-        with pytest.raises(NotImplementedError):
-            ttm.TrafficModel(**base, **kw)

@@ -591,13 +591,11 @@ def test_config_reader_raises_outside_the_subset(tmp_path, line):
     (["--data_version", "trainval"], FileNotFoundError),
     (["--viz"], "viz_results"),
     (["--mesh_devices", "2"], NotImplementedError),
-    (["--bf16"], NotImplementedError),
     (["--data_version", "mini"], FileNotFoundError),
 ], ids=["trainval-no-etl-FileNotFoundError", "viz-renders",
-        "mesh_devices-NotImplementedError", "bf16-NotImplementedError",
-        "mini-no-etl-FileNotFoundError"])
+        "mesh_devices-NotImplementedError", "mini-no-etl-FileNotFoundError"])
 def test_entry_point_raises_on_options_not_ported(tmp_path, extra, want):
-    """Multi-GPU and bf16 still raise; real nuScenes without its ETL
+    """Multi-GPU still raises; real nuScenes without its ETL
     directory raises strive_tpu's FileNotFoundError; --viz renders every
     saved scene before and after the adversarial optimization."""
     argv = ["-c", os.path.join(REPO, "configs/adv_gen_synthetic.cfg"),
