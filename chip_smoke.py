@@ -17,8 +17,16 @@ them, on the main path and in training (phase 13). Phases:
 
 1. the card's name and power limit (nvidia-smi); fails without CUDA;
 2. builds the CUDA kernels from ``strive_tpu_torch/csrc`` (nvcc, parallel);
-3. K1 ``map_crop`` against its plain version at the main path's shape and
-   on map-edge / NaN-pose / small-crop cases: bit-exact;
+3. K1 ``map_crop`` against its plain version at the main path's shape,
+   on map-edge / NaN-pose / small-crop cases and on
+   ``kernel_cases.crop_edge_cases`` (samples on rounding ties and at the
+   extents' edges, non-unit, zero and infinite headings, NaN and
+   infinite positions, C in {1, 3, 4, 5, 8}, wide crops, 70,000 crops of
+   8 x 8), both layouts:
+   bit-exact; and K1's division (a product by RN(1/dx) and two residual
+   corrections) against ``__fdiv_rn`` on every float32 g whose quotient
+   lies in [-2, 14,749] pixels, for every dx of this script's stores
+   (``crop_kernel.quotient_mismatches``): 0 mismatches;
 4. K2 ``footprint_coll_point`` against its plain version at the main
    path's shape, with un-normalized headings and on the edge cases of
    ``kernel_cases.coll_point_cases`` (grids 7x5 and 64x40, cars wholly
@@ -136,10 +144,12 @@ them, on the main path and in training (phase 13). Phases:
    a. K1 writing bfloat16 (the bf16 model's crop) in both layouts, held
       bit for bit against its plain version in bf16 at phase 3's cases
       (the main path's shape, inside and off the map, NaN poses, 3
-      channels, 64 px), at training's 128 poses, and in 12b on the
-      nuScenes-extent store (true edges, padding, off the stack); timed
-      at 32 and 128 poses beside the float32 K1, the plain version and
-      both bounds;
+      channels, 64 px, the edge cases), at training's 128 poses, and in
+      12b on the nuScenes-extent store (true edges, padding, off the
+      stack); timed at 32 and 128 poses beside the float32 K1, the plain
+      version and both bounds (and, held and timed the same way, at the
+      shapes of 9a, 10a and 12b: ``bf16_ms`` and ``bf16_bound_ms`` in
+      their entries);
    b. phase 5's small run (3 iterations) with each option: bf16 compute,
       the direct state output (``output_bicycle=False``), the 'gru'
       encoders, ``map_refresh_every`` 2 and 3 (FT 6), card against CPU
@@ -173,7 +183,9 @@ them, on the main path and in training (phase 13). Phases:
       (``kernel_cases.nusc_pose_cases``); each timed at the launch shapes
       of c (a decode step of 4 x 16 poses; the ego prior's 48 cars) and d
       (a sampling step of 20 x 16 poses; the adversarial loss's 16 x 36
-      cars) beside its plain version and bound; the device's busy share
+      cars) beside its plain version and bound; K1's division swept as
+      in phase 3 over this store's dx and [-2, max(H, W) + 1] pixels; the
+      device's busy share
       over two train steps on the data;
    c. ``train_traffic -c configs/train_traffic.cfg`` on it for 5 train and
       2 val batches of one epoch: finite metrics, K1 1 + 2 FT and K2 1
@@ -1267,6 +1279,9 @@ def pipeline_phase(torch, np, rates, card, counters, kernels):
                  "plain_ms": cuda_ms(lambda: plain(*args), 20)}
         entry["bound_ms"], entry["bound_by"] = bound_ms(
             rates, *work(torch, queries, args))
+        if name == "map_crop":
+            entry.update(bf16_crop_entry(torch, crop_kernel, queries,
+                                         cuda_ms, rates, args, "9a"))
         kernels[name]["pipeline_shape"] = entry
         log(f"a. {name} at the {what}: {entry['ms']:.4f} ms (plain "
             f"{entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms by "
@@ -1460,6 +1475,9 @@ def new_shapes(torch, rates, kernels):
                  "plain_ms": cuda_ms(lambda: plain(*args), 10)}
         entry["bound_ms"], entry["bound_by"] = bound_ms(
             rates, *work(torch, queries, args))
+        if name == "map_crop":
+            entry.update(bf16_crop_entry(torch, crop_kernel, queries,
+                                         cuda_ms, rates, args, "10a"))
         kernels[name][key] = entry
         log(f"10a. {name} at {what}: max err {err:.3g}; {entry['ms']:.4f} ms "
             f"(plain {entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f}"
@@ -1980,9 +1998,11 @@ def nusc_phase(torch, np, rates, card, counters, kernels, dev):
                                      f"the nuScenes store ({args[-1]}): "
                                      f"{int((got != want).sum())} values")
             del got, want
-            check_bf16_crop(torch, crop_kernel, args)  # 13a on this store
+            check_crop(torch, crop_kernel, args, torch.bfloat16, "12b")
         k2_err = kc.coll_point_error(k2)
         n_cases = {k: int(len(v[1])) for k, v in cases.items()}
+        sweep = quotient_sweep(crop_kernel, store.dx.reshape(-1).tolist(),
+                               max(store.packed.shape[1:]) + 1, dev, "12b")
         # the launch shapes of c and d, from their data
         vcfg = gen.parse_cfg(["-c", os.path.join(ROOT, NUSC_ADV_CFG),
                               "--data_dir", data_dir])
@@ -2049,13 +2069,17 @@ def nusc_phase(torch, np, rates, card, counters, kernels, dev):
                      "plain_ms": cuda_ms(lambda: plain(*args), 10)}
             entry["bound_ms"], entry["bound_by"] = bound_ms(
                 rates, *work(torch, queries, args))
+            if name == "map_crop":
+                entry.update(bf16_crop_entry(torch, crop_kernel, queries,
+                                             cuda_ms, rates, args, "12b"))
             kernels[name][key] = entry
             log(f"12b. {name} at {what}: {entry['ms']:.4f} ms (plain "
                 f"{entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} "
                 f"ms by {entry['bound_by']})")
         line["b"] = {"cases": n_cases, "map_crop": "bit-exact, both layouts",
                      "map_crop_bf16": "bit-exact, both layouts",
-                     "footprint_coll_point_max_abs_err": k2_err}
+                     "footprint_coll_point_max_abs_err": k2_err,
+                     "k1_quotient_sweep": sweep}
         log(f"12b. map_crop bit-exact and footprint_coll_point within "
             f"tolerance (coll_pt {k2_err:.3g}) on {n_cases} poses of the "
             f"nuScenes store")
@@ -2299,17 +2323,44 @@ def its_in_turns(torch, models, scene, store):
     return out
 
 
-def check_bf16_crop(torch, crop_kernel, args):
-    """Phase 13a: K1's bfloat16 output equals its plain version's, bit for
-    bit (0 and 1 are exact in bf16)."""
-    got = crop_kernel.map_crop(*args, torch.bfloat16)
-    want = crop_kernel.map_crop_plain(*args, torch.bfloat16)
+def check_crop(torch, crop_kernel, args, dtype, where):
+    """K1's output of ``dtype`` equals its plain version's, bit for bit (0
+    and 1 are exact in float32 and bf16)."""
+    got = crop_kernel.map_crop(*args, dtype)
+    want = crop_kernel.map_crop_plain(*args, dtype)
     torch.cuda.synchronize()
-    if got.dtype != torch.bfloat16 or not torch.equal(got, want):
-        raise AssertionError(f"13a. bf16 map_crop differs from plain "
+    if got.dtype != dtype or not torch.equal(got, want):
+        raise AssertionError(f"{where}. {dtype} map_crop differs from plain "
                              f"({args[-1]}, C {args[6]}, "
                              f"{args[2].shape[0]} poses): "
                              f"{int((got != want).sum())} values")
+
+
+def bf16_crop_entry(torch, crop_kernel, queries, cuda_ms, rates, args,
+                    where):
+    """K1 writing bf16 at the shape of ``args``: bit-exact against its
+    plain version, then timed beside its bound (2-byte outputs)."""
+    check_crop(torch, crop_kernel, args, torch.bfloat16, where)
+    nbytes, flops = crop_work(torch, queries, args, out_bytes=2)
+    return {"bf16_ms": cuda_ms(lambda: crop_kernel.map_crop(
+        *args, torch.bfloat16), 200),
+        "bf16_bound_ms": bound_ms(rates, nbytes, flops)[0]}
+
+
+def quotient_sweep(crop_kernel, dxs, hi_px, dev, where):
+    """K1's division against the IEEE quotient on every float32 g whose
+    quotient lies in [-2, ``hi_px``] pixels, for each distinct dx of
+    ``dxs``: raise on any mismatch. :return: the JSON-able record"""
+    ds = sorted({float(d) for d in dxs})
+    tried = 0
+    for d in ds:
+        bad, n = crop_kernel.quotient_mismatches(d, -2, hi_px, dev)
+        tried += n
+        if bad:
+            raise AssertionError(f"{where}. K1's quotient differs from "
+                                 f"__fdiv_rn for {bad} of {n} g at dx {d}")
+    return {"dx": ds, "pixels": [-2, hi_px], "g_tried": tried,
+            "mismatches": 0}
 
 
 def options_phase(torch, np, tm, norm, rates, card, counters, kernels,
@@ -2341,13 +2392,13 @@ def options_phase(torch, np, tm, norm, rates, card, counters, kernels,
     for args in k1_cases:
         for layout in ("nhwc", "nchw"):
             a = (*args[:-1], layout)
-            check_bf16_crop(torch, crop_kernel, a)
+            check_crop(torch, crop_kernel, a, bf16, "13a")
             checked += 1
     shapes = {}
     for what, args in (("main_32", k1_cases[0]),
                        ("training_128", kc.decode_crop_args(DEV, 8))):
         entry = {"poses": int(args[2].shape[0])}
-        check_bf16_crop(torch, crop_kernel, args)  # the shape it is timed at
+        check_crop(torch, crop_kernel, args, bf16, "13a")  # timed at it
         checked += 1
         for tag, dt, nb in (("f32", torch.float32, 4), ("bf16", bf16, 2)):
             entry[f"{tag}_ms"] = cuda_ms(
@@ -2555,7 +2606,7 @@ def main():
     from strive_tpu_torch import kernel_cases as kc
     from strive_tpu_torch.data.synthetic import synthetic_scene_list
     from strive_tpu_torch.maps import crop_kernel, queries
-    from strive_tpu_torch.maps.store import DEFAULT_BOUNDS, synthetic_map_store
+    from strive_tpu_torch.maps.store import synthetic_map_store
     from strive_tpu_torch.model import traffic_model as tm
     from strive_tpu_torch.normalize import (att_normalizer_for,
                                             state_normalizer_for)
@@ -2591,11 +2642,8 @@ def main():
     kernels = {}
 
     # --- 3. K1 against its plain version -----------------------------------
-    pos = (scene.past[:, :, -1, :4] * sstd + smean).reshape(B * NA, 4)
-    mapix = torch.repeat_interleave(scene.map_idx, NA)
-    lo, wo = queries.crop_offsets(DEFAULT_BOUNDS, MAP_PX, MAP_PX, dev)
-    k1_args = (store.packed, store.dx, pos.contiguous(), mapix, lo, wo, 4,
-               "nhwc")
+    k1_args = kc.main_path_crop_args(store, scene, smean, sstd)
+    lo, wo = k1_args[4:6]
     rng = np.random.default_rng(0)
     edge = np.concatenate([rng.uniform(-30, 540, (8, 2)),
                            rng.normal(size=(8, 2))], 1).astype(np.float32)
@@ -2618,6 +2666,25 @@ def main():
             raise AssertionError(
                 f"map_crop differs from plain: {int((got != ref).sum())} "
                 f"values, layout {args[-1]}, C {args[-2]}")
+    # K1's edge cases (kernel_cases.crop_edge_cases), both layouts; 13a
+    # runs them in bf16
+    edge_raster = kc.crop_edge_raster(dev)
+    edge_args = [kc.crop_edge_args(edge_raster, c, "nhwc", dev)
+                 for c in kc.crop_edge_cases().values()]
+    for args in edge_args:
+        for layout in ("nhwc", "nchw"):
+            check_crop(torch, crop_kernel, (*args[:-1], layout),
+                       torch.float32, "3")
+    # K1's division on every g of [-2, 14,749] pixels (the nuScenes store's
+    # widest raster) for every dx of the stores this script builds
+    sweep = quotient_sweep(
+        crop_kernel, [*store.dx.reshape(-1).tolist(),
+                      *edge_raster[1].reshape(-1).tolist(),
+                      *kc.nusc_dx().reshape(-1).tolist()],
+        14749, dev, "3")
+    log(f"3. K1 bit-exact on {len(edge_args)} edge cases x 2 layouts; its "
+        f"quotient equal to __fdiv_rn on {sweep['g_tried']} g over dx "
+        f"{sweep['dx']}")
     k1_ms = cuda_ms(lambda: crop_kernel.map_crop(*k1_args), 200)
     k1_plain_ms = cuda_ms(lambda: crop_kernel.map_crop_plain(*k1_args),
                           20)
@@ -2627,7 +2694,7 @@ def main():
         name="map_crop", route="cuda", source="strive_tpu_torch/csrc/crop.cu",
         replaces="strive_tpu/maps/crop_kernel.py:201", max_abs_err=k1_err,
         ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound, bound_by=k1_by,
-        library_ms=None)
+        library_ms=None, edge_cases=2 * len(edge_args), quotient_sweep=sweep)
     log(f"K1 map_crop bit-exact on {len(cases)} cases; {k1_ms:.4f} ms "
         f"(plain {k1_plain_ms:.4f} ms, bound {k1_bound:.4f} ms by {k1_by})")
 
@@ -2748,7 +2815,7 @@ def main():
     # --- 13. the model options ------------------------------------------
     options = options_phase(torch, np, tm, norm, rates, card, counters,
                             kernels, (scene, store), model, its, training,
-                            cases[:1] + cases[2:])
+                            cases[:1] + cases[2:] + edge_args)
     del model
     torch.cuda.empty_cache()
 

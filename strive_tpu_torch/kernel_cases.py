@@ -51,6 +51,29 @@ def main_path_k2(device):
     return store, main_path_coll_point_args(store, scene, *stats)
 
 
+def main_path_crop_args(store, scene, state_mean, state_std):
+    """K1's arguments as the main path's first crop gives them: every
+    agent's last past pose, un-normalized, its map, 256 px with the
+    default bounds, all of the store's channels, NHWC.
+
+    :param scene: a ``pad_scene_arrays`` batch on ``store``'s device
+    :param state_mean, state_std: (4,) tensors of the pose normalizer
+    """
+    pos = (scene.past[:, :, -1, :4] * state_std + state_mean).reshape(-1, 4)
+    mapix = scene.map_idx.repeat_interleave(scene.past.shape[1])
+    lo, wo = queries.crop_offsets(DEFAULT_BOUNDS, 256, 256, pos.device)
+    return (store.packed, store.dx, pos.contiguous(), mapix.contiguous(), lo,
+            wo, store.C, "nhwc")
+
+
+def main_path_k1(device):
+    """K1's arguments at the main path's shape in ``chip_smoke.py``, B=4
+    scenes x NA=8 agents (32 poses) on 2 synthetic maps of 2048 px x 4
+    channels at 4 px/m."""
+    store, scene, (smean, sstd, _, _) = _full_width_scene(device, 12, NA=8)
+    return main_path_crop_args(store, scene, smean, sstd)
+
+
 def _full_width_scene(device, FT, NA=16, B=4):
     """The full-width store (2 maps x 2048 px x 4 channels at 4 px/m) and B
     synthetic scenes of NA agents on it, with the pose and size
@@ -245,6 +268,168 @@ def nusc_kernel_args(store, cases, L=256, seed=0):
           queries.linspace(-1.0, 1.0, gl, dev),
           queries.linspace(-1.0, 1.0, gw, dev), 0)
     return (*k1, "nhwc"), (*k1, "nchw"), k2
+
+
+# K1's residual corrections of the quotient (``kQuotientSteps`` in crop.cu)
+K1_QUOTIENT_STEPS = 2
+
+
+def fma32(a, b, c):
+    """float32 ``a * b + c`` rounded once, as numpy arrays (numpy has no
+    fma): the product is exact in float64, the float64 sum is rounded to
+    odd (a TwoSum error term says which way it was inexact), and a
+    round-to-odd value of 53 bits rounds to float32 as the exact sum
+    would."""
+    a, b, c = (np.asarray(v, np.float32).astype(np.float64) for v in (a, b, c))
+    p = a * b
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    bits = s.view(np.int64)
+    inexact = (err != 0) & ((bits & 1) == 0) & np.isfinite(s)
+    # a step of one float64 ulp toward the exact sum
+    bits = np.where(inexact, bits + np.where((err > 0) == (s > 0), 1, -1),
+                    bits)
+    return bits.view(np.float64).astype(np.float32)
+
+
+def k1_rounded_quotient(g, d):
+    """A numpy model of K1's ``rounded_quotient<true>`` (crop.cu): ``g``
+    times ``r = RN(1/d)``, then ``K1_QUOTIENT_STEPS`` corrections ``v +
+    RN(g - v*d)*r`` in fused multiply-adds, then ``rint``."""
+    g = np.asarray(g, np.float32)
+    d = np.float32(d)
+    r = np.float32(1) / d
+    v = g * r
+    for _ in range(K1_QUOTIENT_STEPS):
+        v = fma32(fma32(-v, d, g), r, v)
+    return np.rint(v)
+
+
+def quotient_sweep_g(d, W, ulps=64, n_random=2 ** 20, seed=0):
+    """The float32 ``g`` of the CPU quotient sweep for ``d``: every float32
+    within ``ulps`` of ``(k + 1/2) * d`` for each half-integer tie ``k +
+    1/2`` over ``[-2, W + 1]`` pixels, and ``n_random`` uniform ``g`` of
+    that range."""
+    d = np.float32(d)
+    tie = (np.arange(-2, W + 1) + 0.5) * np.float64(d)
+    g0 = tie.astype(np.float32)
+    step = np.arange(-ulps, ulps + 1)
+    # float32 bits are ordered by magnitude: step away from zero on both sides
+    bits = g0.view(np.int32).astype(np.int64)[:, None] + step
+    near = bits.astype(np.int32).view(np.float32).reshape(-1)
+    rng = np.random.default_rng(seed)
+    far = rng.uniform(-2 * float(d), (W + 1) * float(d), n_random)
+    return np.concatenate([near, far.astype(np.float32)])
+
+
+def nusc_dx(pix_per_m=4.0):
+    """(4, 2) float32: the ``dx`` of :func:`nusc_store`'s maps, as the ETL
+    computes them (extent / round(extent x pix_per_m)), without the
+    raster."""
+    size = np.array([NUSC_MAP_SIZES[m] for m in NUSC_MAP_SIZES])
+    return (size / np.round(size * pix_per_m)).astype(np.float32)
+
+
+def crop_edge_raster(device, seed=0):
+    """``(packed, dx)``: K1's edge-case raster, 3 maps of 300 x 200 random
+    bytes (every bit of every pixel drawn alone, so a sample that reads a
+    neighbour of its pixel changes the crop in most channels), with
+    dx = (0.25, 0.25), (0.5, 0.25) and (0.1, 0.1) meters a pixel."""
+    rng = np.random.default_rng(seed)
+    packed = rng.integers(0, 256, (3, 300, 200)).astype(np.uint8)
+    dx = np.array([[0.25, 0.25], [0.5, 0.25], [0.1, 0.1]], np.float32)
+    return torch.from_numpy(packed).to(device), torch.from_numpy(dx).to(device)
+
+
+# the bounds of K1's tie cases: offsets of 0.25 m at L = 65, exact in float32
+TIE_BOUNDS = (-8.0, -8.0, 8.0, 8.0)
+
+
+def crop_edge_cases(seed=0):
+    """K1's edge cases on :func:`crop_edge_raster` (H = 300, W = 200), as
+    numpy: ``{name: (pos (N, 4) f32, mapix (N,) i64, bounds, L, Wc, C)}``.
+
+    - ``ties``: axis-aligned headings, some not unit ((1, 0), (0, 1),
+      (-1, 0), (0, -1), (2, 0), (0, -3)), at x, y = (k + 1/2) dx on maps 0
+      and 1 with :data:`TIE_BOUNDS`: every sample's quotient is a
+      half-integer, which rounds to even;
+    - ``edges``: the same headings at the map's corners, (k + 1/2) dx
+      from them: rounded coordinates -0, -1, W - 1 and W (H - 1, H);
+    - ``headings``: headings of length 0 (both signs of zero), 1e-20, 300
+      and 1e20, and unit ones, on all three maps;
+    - ``bad_poses``: NaN positions, NaN headings and infinite positions
+      (map indices stay in range: out of range, K1 clamps them, while
+      strive_tpu's crop reads other maps' bytes, so no oracle holds them);
+    - ``C{1,3,5,8}``: random poses on and off the maps with 1, 3, 5 and 8
+      channels (the others take 4);
+    - ``rows_300x37``, ``rows_514x5``, ``rows_1x3``: crops wider than a
+      block (300 px; 514, even, for bf16's pixel pairs), and one column;
+    - ``many_small``: 70,000 poses (over 65,535) of 8 x 8 crops.
+    """
+    rng = np.random.default_rng(seed)
+    H, W = 300, 200
+    dx = np.array([[0.25, 0.25], [0.5, 0.25], [0.1, 0.1]])
+    heads = np.array([[1, 0], [0, 1], [-1, 0], [0, -1], [2, 0], [0, -3]],
+                     np.float64)
+
+    def poses(xy, h):
+        return np.concatenate([xy, h], 1).astype(np.float32)
+
+    def random(N, maps=3):
+        m = rng.integers(0, maps, N)
+        xy = rng.uniform(-0.2, 1.2, (N, 2)) * [W, H] * dx[m]
+        th = rng.uniform(-np.pi, np.pi, N)
+        return poses(xy, np.stack([np.cos(th), np.sin(th)], 1)), m
+
+    cases = {}
+    k = rng.integers(20, 180, (2 * len(heads), 2))
+    m = np.repeat([0, 1], len(heads))
+    xy = (k + 0.5) * dx[m]
+    cases["ties"] = (poses(xy, np.tile(heads, (2, 1))), m, TIE_BOUNDS, 65,
+                     65, 4)
+    corners = np.array([[0, 0], [W, 0], [0, H], [W, H]], np.float64)
+    xy = np.concatenate([corners * dx[mm] + (s + 0.5) * dx[mm]
+                         for mm in (0, 1) for s in (-1, 0)])
+    m = np.repeat([0, 0, 1, 1], 4)
+    h = np.repeat(heads[:4], 4, axis=0)
+    cases["edges"] = (poses(xy, h), m, TIE_BOUNDS, 65, 65, 4)
+    lens = np.array([0.0, -0.0, 1e-20, 300.0, 1e20, 1.0])
+    th = rng.uniform(-np.pi, np.pi, len(lens))
+    h = np.stack([np.cos(th), np.sin(th)], 1) * lens[:, None]
+    h[1] = [-0.0, -0.0]
+    m = np.arange(len(lens)) % 3
+    xy = rng.uniform(0.1, 0.9, (len(lens), 2)) * [W, H] * dx[m]
+    cases["headings"] = (poses(xy, h), m, (-17.0, -38.5, 60.0, 38.5), 64, 64,
+                         4)
+    pos, m = random(8)
+    pos[0] = np.nan
+    pos[1, :2] = np.nan
+    pos[2, 2:] = np.nan
+    pos[3, :2] = [np.inf, -np.inf]
+    pos[4, 2:] = [np.inf, 0.0]
+    cases["bad_poses"] = (pos, m.astype(np.int64), (-17.0, -38.5, 60.0, 38.5),
+                          32, 32, 4)
+    for C in (1, 3, 5, 8):
+        pos, m = random(6)
+        cases[f"C{C}"] = (pos, m, (-17.0, -38.5, 60.0, 38.5), 40, 40, C)
+    for L, Wc in ((37, 300), (5, 514), (3, 1)):
+        pos, m = random(4)
+        cases[f"rows_{Wc}x{L}"] = (pos, m, (-10.0, -20.0, 10.0, 20.0), L, Wc,
+                                   4)
+    pos, m = random(70000)
+    cases["many_small"] = (pos, m, (-2.0, -2.0, 2.0, 2.0), 8, 8, 4)
+    return {k: (p, np.asarray(mm, np.int64), b, L, Wc, C)
+            for k, (p, mm, b, L, Wc, C) in cases.items()}
+
+
+def crop_edge_args(raster, case, layout, device):
+    """``map_crop``'s arguments for one :func:`crop_edge_cases` entry on
+    ``raster`` = :func:`crop_edge_raster`'s ``(packed, dx)``."""
+    pos, mapix, bounds, L, Wc, C = case
+    lo, wo = queries.crop_offsets(bounds, L, Wc, device)
+    return (*raster, torch.from_numpy(pos).to(device),
+            torch.from_numpy(mapix).to(device), lo, wo, C, layout)
 
 
 def coll_point_cases(size_px, pix_per_m=4.0, seed=0):

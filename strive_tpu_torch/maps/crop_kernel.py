@@ -16,6 +16,9 @@ the oracle of the CUDA tests.
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from ..utils import launch
@@ -36,6 +39,9 @@ _LIB = launch.Library(SOURCE, {
     # coll_pt, valid, frac, stream
     "strive_footprint_coll_point": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _P, _P, _P, _P],
+    # d, pos_n, neg_n, mismatches, stream
+    "strive_crop_quotient_sweep": [ctypes.c_float, ctypes.c_ulonglong,
+                                   ctypes.c_ulonglong, _P, _P],
 })
 
 
@@ -101,6 +107,30 @@ def map_crop_plain(packed, dx, pos, mapix, lo, wo, num_channels,
     """Plain PyTorch version of :func:`map_crop` (any device)."""
     return queries.crop_plain(packed, dx, pos, mapix, lo, wo, num_channels,
                               layout, dtype)
+
+
+def quotient_mismatches(d, lo_px, hi_px, device):
+    """K1's division on the card against the IEEE quotient: the number of
+    float32 ``g`` whose quotient ``g / d`` lies in ``[lo_px, hi_px]``
+    pixels (``lo_px <= 0 < hi_px``) for which K1's ``rint(g / d)`` differs
+    from ``rint`` of ``__fdiv_rn(g, d)``; every such ``g`` is tried. Not a
+    launch of K1: ``LAUNCHES`` is left alone.
+
+    :param d: a float32 meters per pixel, ``d > 0``
+    :return: (mismatches, number of ``g`` tried)
+    """
+    d = np.float32(d)
+    if not d > 0:
+        raise ValueError("quotient_mismatches takes d > 0")
+    # the float32 g of [lo_px * d, hi_px * d], widened by an ulp each way
+    g_lo = np.nextafter(np.float32(np.float64(lo_px) * d), np.float32(-np.inf))
+    g_hi = np.nextafter(np.float32(np.float64(hi_px) * d), np.float32(np.inf))
+    pos_n = int(g_hi.view(np.uint32)) + 1 if g_hi >= 0 else 0
+    neg_n = int((-g_lo).view(np.uint32)) + 1 if g_lo < 0 else 0
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    _LIB.launch("strive_crop_quotient_sweep", float(d), pos_n, neg_n,
+                count.data_ptr(), launch.stream(device))
+    return int(count.item()), pos_n + neg_n
 
 
 def footprint_coll_point(packed, dx, cars, lw, mapix, lin_l, lin_w, bit=0):

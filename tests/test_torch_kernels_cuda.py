@@ -242,6 +242,40 @@ def test_footprint_nusc_store_matches_plain(nusc):
     kc.coll_point_error(k2)
 
 
+K1_EDGE_CASES = kc.crop_edge_cases()
+
+
+@pytest.fixture(scope="module")
+def edge_raster(dev):
+    return kc.crop_edge_raster(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+@pytest.mark.parametrize("case", list(K1_EDGE_CASES))
+def test_map_crop_edge_cases_match_plain(edge_raster, case, layout, dtype):
+    """K1 on ``kernel_cases.crop_edge_cases``: samples on rounding ties and
+    at the extents' edges, non-unit, zero and infinite headings, NaN and
+    infinite positions, C in {1, 3, 4, 5, 8}, crops wider than a block, and
+    70,000 crops of 8 x 8 (more poses than a grid's y dimension holds)."""
+    dev = edge_raster[0].device
+    args = kc.crop_edge_args(edge_raster, K1_EDGE_CASES[case], layout, dev)
+    got = crop_kernel.map_crop(*args, dtype)
+    want = crop_kernel.map_crop_plain(*args, dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("d", sorted(
+    {0.25, 0.5, 0.1} | set(kc.nusc_dx().reshape(-1).tolist())))
+def test_quotient_sweep_finds_no_mismatch(dev, d):
+    """K1's division against the IEEE quotient on every float32 g whose
+    quotient lies in [-2, 14,749] pixels (nuScenes' widest raster + 1):
+    the edge raster's dx, 0.1 and the nuScenes store's."""
+    assert crop_kernel.quotient_mismatches(d, -2, 14749, dev)[0] == 0
+
+
 def test_cuda_dispatch_launches_the_kernels(dev, store):
     rng = np.random.default_rng(4)
     pos = torch.from_numpy(_poses(rng, 4, 150.0, 360.0)).to(dev)

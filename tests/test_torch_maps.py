@@ -21,6 +21,7 @@ from strive_tpu.maps import synthetic_map_store as j_store
 from strive_tpu_torch import kernel_cases as kc
 from strive_tpu_torch.maps import crop_kernel, queries as tq
 from strive_tpu_torch.maps import synthetic_map_store as t_store
+from strive_tpu_torch.utils import build
 
 BOUNDS = (-17.0, -38.5, 60.0, 38.5)
 SMALL = (-4.0, -8.0, 12.0, 8.0)
@@ -253,6 +254,78 @@ def test_on_layer_and_line_layer(stores):
                               t(mapix))),
         n(jq.check_line_layer(js.drivable(), js.dx, jnp.asarray(start),
                               jnp.asarray(end), jnp.asarray(mapix))))
+
+
+# the widest raster of the nuScenes-extent store (queenstown's 3687.1 m)
+NUSC_W = 14748
+
+
+@pytest.mark.parametrize("case", ["ties", "edges"])
+def test_crop_tie_cases_put_samples_on_ties(case):
+    """K1's tie cases really sample on rounding ties: under the plain
+    version, many quotients g / dx lie within 1 ulp of a half-integer."""
+    raster = kc.crop_edge_raster("cpu")
+    pos, mapix, bounds, L, Wc, _ = kc.crop_edge_cases()[case]
+    lo, wo = tq.crop_offsets(bounds, L, Wc)
+    pos = torch.from_numpy(pos)
+    xys = tq.rotate_grid(lo[None, :, None], wo[None, None, :], pos[:, :2],
+                         pos[:, 2:4])
+    q = xys / raster[1][torch.from_numpy(mapix)][:, None, None, :]
+    off = (q - torch.floor(q) - 0.5).abs()
+    ulp = torch.nextafter(q.abs(), torch.tensor(np.inf)) - q.abs()
+    assert int((off <= ulp).sum()) > q.numel() // 2
+
+
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+@pytest.mark.parametrize("case", ["ties", "edges", "headings", "bad_poses"])
+def test_crop_edge_cases_match_jax(case, layout):
+    """The port's plain crop, K1's oracle, equals strive_tpu's crop bit for
+    bit in all 8 channels on K1's edge cases: on exact ties (every op of
+    the sample exact) both round half to even, and zero, tiny, huge and
+    infinite headings and NaN or infinite positions go where strive_tpu's
+    crop sends them."""
+    packed, dx = kc.crop_edge_raster("cpu")
+    pos, mapix, bounds, L, Wc, _ = kc.crop_edge_cases()[case]
+    raster = (packed[:, None] >> torch.arange(8, dtype=torch.uint8)[
+        None, :, None, None]) & 1
+    want = j_crop(jnp.asarray(n(raster)), jnp.asarray(n(dx)),
+                  jnp.asarray(pos), jnp.asarray(mapix.astype(np.int32)),
+                  bounds, L=L, W=Wc, packed=jnp.asarray(n(packed)),
+                  layout=layout)
+    lo, wo = tq.crop_offsets(bounds, L, Wc)
+    got = crop_kernel.map_crop_plain(packed, dx, t(pos), t(mapix), lo, wo, 8,
+                                     layout)
+    np.testing.assert_array_equal(n(got), n(want))
+
+
+@pytest.mark.parametrize("d", [0.25, 0.1])
+def test_k1_quotient_model_matches_ieee_division(d):
+    """K1's division (a product by RN(1/dx) and residual corrections,
+    modelled in numpy) rounds to the same pixel as the IEEE quotient, and
+    makes the same inside decision, on every float32 g within 64 ulp of
+    each half-integer tie over [-2, W + 1] pixels of the widest nuScenes
+    raster, and on 2^20 random g there."""
+    g = kc.quotient_sweep_g(d, NUSC_W)
+    want = np.rint(g / np.float32(d))
+    got = kc.k1_rounded_quotient(g, d)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal((got >= 0) & (got < NUSC_W),
+                                  (want >= 0) & (want < NUSC_W))
+    if d == 0.1:  # the sweep tells a bare product from the quotient
+        naive = np.rint(g * (np.float32(1) / np.float32(d)))
+        assert (naive != want).sum() > 1000
+
+
+def test_k1_quotient_model_is_the_kernels():
+    """The model takes as many residual corrections as crop.cu does, and
+    its fused multiply-add rounds once."""
+    src = (build.CSRC / "crop.cu").read_text()
+    assert (f"constexpr int kQuotientSteps = {kc.K1_QUOTIENT_STEPS};"
+            in src)
+    one = np.float32(1 + 2 ** -12)
+    # (1 + 2^-12)^2 - 1 = 2^-11 + 2^-24: two roundings would lose 2^-24
+    assert kc.fma32(one, one, np.float32(-1)) == np.float32(2 ** -11
+                                                            + 2 ** -24)
 
 
 def test_wrappers_refuse_cpu_tensors(stores):

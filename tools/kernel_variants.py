@@ -1,15 +1,18 @@
-"""Launch-shape variants of K2 ``footprint_coll_point``, K4b
-``window_take`` and K5c ``window_sums``, timed on the card beside the
+"""Launch-shape variants of K1 ``map_crop``, K2 ``footprint_coll_point``,
+K4b ``window_take`` and K5c ``window_sums``, timed on the card beside the
 port's kernels and an earlier checkout's.
 
-    python -m tools.kernel_variants [--parent DIR] [--kernels k2 take sums]
+    python -m tools.kernel_variants [--parent DIR] [--kernels k1 k2 take sums]
 
-Each variant is a copy of ``strive_tpu_torch/csrc/crop.cu`` (K2),
+Each variant is a copy of ``strive_tpu_torch/csrc/crop.cu`` (K1, K2),
 ``window.cu`` (K4b) or ``bisect.cu`` (K5c) with some of the kernel's
 constants replaced (:func:`variant_sources`; every replaced text must occur
-once in the source): for K2 the threads per car and the loads in flight
-per thread, for K4b the threads per block, the blocks per SM and the
-outputs per thread of the layout by SM, the evict-first hints on or off,
+once in the source): for K1 the threads a block, the column units a
+thread takes in a row, the rows a thread takes and the residual steps of
+its division, and one copy that divides with ``__fdiv_rn``; for K2 the
+threads per car and the loads in flight per thread, for K4b the threads
+per block, the blocks per SM and the outputs per thread of the layout by
+SM, the evict-first hints on or off,
 and the share of L2 the windows may fill before the take turns to its
 flat layout, for K5c the threads per block and the pieces a thread loads
 before it sums them, of the block used while the outputs outnumber the
@@ -17,11 +20,14 @@ SMs and of the wide block used while they do not, and the way each
 reads its windows' starts (staged in shared memory or read by every
 thread).
 The copies are built under ``build/variants/`` with the port's nvcc
-flags, one nvcc each, all in parallel, and so are the same three sources
+flags and ``-Xptxas -v`` (K1's registers and spills go into the result),
+one nvcc each, all in parallel, and so are the same sources
 of an earlier checkout with ``--parent`` (``DIR/strive_tpu_torch/csrc``,
 whose C entry points take the same arguments). Every build is held
 against the plain versions on the inputs it is timed at and on the edge
-cases of ``strive_tpu_torch.kernel_cases``: K2 at the main path's shape
+cases of ``strive_tpu_torch.kernel_cases``: K1 at the main path's 32
+poses and training's 128 (256 px, NHWC) in float32 and bf16, and its edge
+cases in both dtypes and layouts, K2 at the main path's shape
 (1152 cars x 39x16 samples on 2 maps of 2048 px), K4b at probe 1's (32
 windows of 512^2, 65,536 indices each; int32, uint8, the first 8 int32
 windows, whose 8 MB stay in L2, and probe 3's 32 int32 windows of 576^2
@@ -30,12 +36,14 @@ path's shape (2048 windows of 64x192 on a (2048, 1024) uint8 raster) and
 at the four Mosaic-bisect variants' (bit for bit against their ``want``
 too). Then ``ROUNDS`` rounds of device times (``utils.timing.cuda_ms``
 through the wrappers): the parent first and last, the others in order and
-then in reverse between. K4b's streaming floor is ``out.copy_(idx)`` into
-an output of its dtype: the index bytes read and the output bytes
-written, without the gathers. K5c's floors are the launch
-(``torch.cuda._sleep(0)``) and a pass of as many 16-byte loads as K5c
-makes over its L2-resident raster (``L2_READ_CU``), from a full card of
-blocks at the path's shape and from G blocks at the scripts'.
+then in reverse between. K1's write floor is ``out.fill_(1)`` into an
+output of its shape and dtype: its bytes without the gathers. K4b's
+streaming floor is ``out.copy_(idx)`` into an output of its dtype: the
+index bytes read and the output bytes written, without the gathers.
+K5c's floors are the launch (``torch.cuda._sleep(0)``) and a pass of as
+many 16-byte loads as K5c makes over its L2-resident raster
+(``L2_READ_CU``), from a full card of blocks at the path's shape and from
+G blocks at the scripts'.
 Prints one JSON line with the card's name and power limit and every
 time; needs a card.
 """
@@ -64,6 +72,11 @@ ROUNDS = 3
 REPS = 200
 OUT_DIR = build.BUILD_DIR.parent / "variants"
 
+# (threads a block, column units a thread takes in a row, rows a thread
+# takes, residual steps of the quotient); the port's is (256, 1, 4, 2)
+K1_SHAPES = ((256, 1, 1, 2), (256, 1, 2, 2), (256, 1, 4, 2), (256, 1, 8, 2),
+             (256, 1, 16, 2), (128, 1, 4, 2), (128, 2, 4, 2), (512, 1, 4, 2),
+             (256, 2, 2, 2), (256, 1, 4, 1))
 # (threads per car, samples per thread per pass); the port's is (128, 5)
 K2_SHAPES = ((32, 20), (64, 10), (96, 7), (128, 1), (128, 5), (160, 4),
              (256, 3), (320, 2), (640, 1))
@@ -90,8 +103,9 @@ SUMS_SHAPES = ((64, 16, 64, 16, False), (512, 2, 512, 2, False),
 # the Mosaic-bisect variants that run K5c, timed at their own shapes
 SUMS_VARIANTS = (mb.v_prefetch_indexmap, mb.v_same_array_two_specs,
                  mb.v_prefetch_indexmap_u8, mb.v_dma_dyn_in_fori)
-KERNELS = ("k2", "take", "sums")
-SOURCES = {"k2": "crop", "take": "window", "sums": "bisect"}
+KERNELS = ("k1", "k2", "take", "sums")
+SOURCES = {"k1": "crop", "k2": "crop", "take": "window", "sums": "bisect"}
+REPS_K1 = 100
 
 # The L2 read floor: n 16-byte loads over the vectors [0, mask] of src (a
 # power of two of them, resident in L2), four in flight a thread, with no
@@ -135,6 +149,20 @@ L2_READ = launch.Library("l2_read", {
     # src, mask, n, blocks, out, stream
     "strive_l2_read": [launch.PTR, ctypes.c_uint, ctypes.c_longlong,
                        launch.INT, launch.PTR, launch.PTR]})
+
+
+def _k1_edits(threads, cols, rows, steps):
+    return {"constexpr int kThreads = 256;":
+            f"constexpr int kThreads = {threads};",
+            "constexpr int kCols = 1;": f"constexpr int kCols = {cols};",
+            "constexpr int kRows = 4;": f"constexpr int kRows = {rows};",
+            "constexpr int kQuotientSteps = 2;":
+            f"constexpr int kQuotientSteps = {steps};"}
+
+
+# K1 dividing as its first design did, with __fdiv_rn at every pixel
+K1_FDIV = {"  if (!kFast) return rintf(__fdiv_rn(g, q.d));":
+           "  if (true) return rintf(__fdiv_rn(g, q.d));"}
 
 
 def _k2_edits(threads, samples):
@@ -185,10 +213,15 @@ def patched(text, edits):
 
 
 def variant_sources(csrc=build.CSRC):
-    """{kernel ("k2", "take" or "sums"): {label: (source name, CUDA
+    """{kernel ("k1", "k2", "take" or "sums"): {label: (source name, CUDA
     text)}}: the port's sources as they are ("port") and every shape's
     copy."""
     crop = (Path(csrc) / "crop.cu").read_text()
+    k1 = {"port": ("crop", crop)}
+    for t, c, r, q in K1_SHAPES:
+        k1[f"threads{t}_cols{c}_rows{r}_steps{q}"] = (
+            "crop", patched(crop, _k1_edits(t, c, r, q)))
+    k1["fdiv"] = ("crop", patched(crop, K1_FDIV))
     window = (Path(csrc) / "window.cu").read_text()
     bisect = (Path(csrc) / "bisect.cu").read_text()
     k2 = {"port": ("crop", crop)}
@@ -207,33 +240,54 @@ def variant_sources(csrc=build.CSRC):
     for how, flag in (("direct", "true"), ("staged", "false")):
         sums[f"starts_{how}_for_every_G"] = ("bisect", patched(
             bisect, {"  if constexpr (WIDE) {": f"  if constexpr ({flag}) {{"}))
-    return {"k2": k2, "take": take, "sums": sums}
+    return {"k1": k1, "k2": k2, "take": take, "sums": sums}
 
 
 def _compile(jobs):
-    """Build each {path: CUDA text} into ``path`` (.so), in parallel."""
+    """Build each {path: CUDA text} into ``path`` (.so), in parallel.
+    :return: {path: nvcc's output, ptxas's report among it}"""
     nvcc, procs = build._nvcc(), {}
     for so, text in jobs.items():
         so.parent.mkdir(parents=True, exist_ok=True)
         src = so.with_suffix(".cu")
         src.write_text(text)
         procs[so] = subprocess.Popen(
-            [nvcc, *build.NVCC_FLAGS, "-o", str(so), str(src)],
+            [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(so),
+             str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    failed = []
+    failed, outs = [], {}
     for so, proc in procs.items():
-        out, _ = proc.communicate()
+        outs[so], _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{so.with_suffix('.cu')}:\n{out}")
+            failed.append(f"{so.with_suffix('.cu')}:\n{outs[so]}")
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return outs
+
+
+def ptxas_report(out, kernel):
+    """{entry function: its "Used ... registers" line and any spill line}
+    of ``kernel``'s instantiations in nvcc ``-Xptxas -v`` output ``out``."""
+    report, entry = {}, None
+    for line in out.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            entry = name if kernel in name else None
+            if entry:
+                report[entry] = []
+        elif entry and ("Used" in line or "spill" in line):
+            report[entry].append(line.split(":", 1)[-1].strip())
+    return report
 
 
 def _bound(like, path):
-    """A ``launch.Library`` with ``like``'s entry points, from ``path``."""
+    """A ``launch.Library`` with ``like``'s entry points, from ``path``
+    (those the build has: an earlier checkout's may lack some)."""
     lib = launch.Library(like.source, like._signatures)
     handle = ctypes.CDLL(str(path))
     for fn, argtypes in like._signatures.items():
+        if not hasattr(handle, fn):
+            continue
         getattr(handle, fn).argtypes = argtypes
         getattr(handle, fn).restype = ctypes.c_int
     handle.strive_cuda_error.argtypes = [launch.INT]
@@ -243,8 +297,9 @@ def _bound(like, path):
 
 
 def _builds(parent, kernels):
-    """{kernel: {label: Library}} for every variant of ``kernels``, and the
-    L2 read floor's Library, built in parallel."""
+    """{kernel: {label: Library}} for every variant of ``kernels``, the
+    L2 read floor's Library, and K1's ptxas report by label, built in
+    parallel."""
     sources = {k: g for k, g in variant_sources().items() if k in kernels}
     if parent is not None:
         csrc = Path(parent) / "strive_tpu_torch" / "csrc"
@@ -256,12 +311,17 @@ def _builds(parent, kernels):
             for label, (name, text) in group.items()}
     floor = OUT_DIR / "l2_read" / "l2_read.so"
     jobs[floor] = L2_READ_CU
-    _compile(jobs)
-    like = {"k2": crop_kernel._LIB, "take": wk._LIB, "sums": bk._LIB}
-    return {kernel: {label: _bound(like[kernel],
-                                   OUT_DIR / kernel / label / f"{name}.so")
-                     for label, (name, _) in group.items()}
-            for kernel, group in sources.items()}, _bound(L2_READ, floor)
+    outs = _compile(jobs)
+    like = {"k1": crop_kernel._LIB, "k2": crop_kernel._LIB, "take": wk._LIB,
+            "sums": bk._LIB}
+    ptxas = {label: ptxas_report(outs[OUT_DIR / "k1" / label / "crop.so"],
+                                 "map_crop_kernel")
+             for label in sources.get("k1", {})}
+    return ({kernel: {label: _bound(like[kernel],
+                                    OUT_DIR / kernel / label / f"{name}.so")
+                      for label, (name, _) in group.items()}
+             for kernel, group in sources.items()}, _bound(L2_READ, floor),
+            ptxas)
 
 
 @contextlib.contextmanager
@@ -295,6 +355,47 @@ def _probe_take(dev, win=512):
     wins = rng.integers(0, 16, (32, win * win)).astype(np.int32)
     idx = rng.integers(0, win * win, (32, 256 * 256)).astype(np.int32)
     return torch.from_numpy(wins).to(dev), torch.from_numpy(idx).to(dev)
+
+
+def _k1(libs, dev, cuda_ms):
+    """K1's builds held bit for bit to the plain version on the inputs
+    they are timed at and on the edge cases, in both dtypes (and, for the
+    edge cases, both layouts), then timed at the main path's 32 poses and
+    training's 128 beside the write floor: ``{"k1_<shape>_<dtype>_ms":
+    ...}``."""
+    main = {"main_32": kc.main_path_k1(dev),
+            "training_128": kc.decode_crop_args(dev, 8)}
+    raster = kc.crop_edge_raster(dev)
+    edges = [kc.crop_edge_args(raster, c, layout, dev)
+             for c in kc.crop_edge_cases().values()
+             for layout in ("nhwc", "nchw")]
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    for label, lib in libs.items():
+        with _built_as(crop_kernel, lib):
+            for args in list(main.values()) + edges:
+                for dt in dtypes.values():
+                    got = crop_kernel.map_crop(*args, dt)
+                    if not torch.equal(got, crop_kernel.map_crop_plain(
+                            *args, dt)):
+                        raise AssertionError(
+                            f"map_crop {label} differs from plain at "
+                            f"{tuple(got.shape)} {args[-1]}, {dt}")
+    res = {}
+    for case, args in main.items():
+        for tag, dt in dtypes.items():
+            fns = {}
+            for label, lib in libs.items():
+                def timed(lib=lib, args=args, dt=dt):
+                    with _built_as(crop_kernel, lib):
+                        return cuda_ms(lambda: crop_kernel.map_crop(
+                            *args, dt), REPS_K1)
+                fns[label] = timed
+            out = torch.empty(crop_kernel.map_crop(*args, dt).shape,
+                              dtype=dt, device=dev)
+            fns["floor_fill"] = lambda out=out: cuda_ms(
+                lambda: out.fill_(1), REPS_K1)
+            res[f"k1_{case}_{tag}_ms"] = _rounds(fns)
+    return res
 
 
 def _k2(libs, dev, cuda_ms):
@@ -422,8 +523,11 @@ def run(parent=None, kernels=KERNELS):
     from strive_tpu_torch.utils.timing import cuda_ms
 
     dev = torch.device("cuda")
-    libs, floor_lib = _builds(parent, kernels)
+    libs, floor_lib, ptxas = _builds(parent, kernels)
     res = {}
+    if "k1" in kernels:
+        res.update(_k1(libs["k1"], dev, cuda_ms))
+        res["k1_ptxas"] = ptxas
     if "k2" in kernels:
         res.update(_k2(libs["k2"], dev, cuda_ms))
     if "take" in kernels:
@@ -434,7 +538,8 @@ def run(parent=None, kernels=KERNELS):
         ["nvidia-smi", "-i", str(torch.cuda.current_device()),
          "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()
-    names = {"k2": "K2 footprint_coll_point", "take": "K4b window_take",
+    names = {"k1": "K1 map_crop", "k2": "K2 footprint_coll_point",
+             "take": "K4b window_take",
              "sums": "K5c window_sums"}
     return {"variants": ", ".join(names[k] for k in kernels),
             "card": card, "kind": torch.cuda.get_device_name(dev),
