@@ -9,11 +9,13 @@ FT=12, 256 px crops, the default model widths, f32 with TF32 off, random
 weights from a seed, on a synthetic store of 2 maps x 2048 px x 4 channels
 at 4 px/m; the closed loop on the same; the scenario-generation
 pipeline through its entry point, as ``scripts/adv_scenario_gen.py`` runs
-it, at the production config's widths (phase 9); and refine, training and
+it, at the production config's widths on strive_tpu's trained prior
+(phase 9); and refine, training and
 evaluation through their entry points, as ``scripts/refine_traffic_optim.py``,
 ``train_traffic.py`` and ``test_traffic.py`` run them, at their configs'
 widths (phases 10 and 11); and the model's options, bf16 compute among
-them, on the main path and in training (phase 13). Phases:
+them, on the main path and in training (phase 13); and multi-process
+runs through ``parallel/mesh.py`` on the one card (phase 14). Phases:
 
 1. the card's name and power limit (nvidia-smi); fails without CUDA;
 2. builds the CUDA kernels from ``strive_tpu_torch/csrc`` (nvcc, parallel);
@@ -26,7 +28,12 @@ them, on the main path and in training (phase 13). Phases:
    bit-exact; and K1's division (a product by RN(1/dx) and two residual
    corrections) against ``__fdiv_rn`` on every float32 g whose quotient
    lies in [-2, 14,749] pixels, for every dx of this script's stores
-   (``crop_kernel.quotient_mismatches``): 0 mismatches;
+   (``crop_kernel.quotient_mismatches``): 0 mismatches; and K1's library
+   yardstick, never called by the port: per map one ``F.affine_grid`` +
+   ``F.grid_sample(mode='nearest')`` of the map's float raster on a grid of
+   all its poses' samples (``crop_library``), timed at the main path's 32
+   poses and training's 128 beside K1, with the samples where it differs
+   from K1 counted by cause (rounding ties, off the map, NaN poses);
 4. K2 ``footprint_coll_point`` against its plain version at the main
    path's shape, with un-normalized headings and on the edge cases of
    ``kernel_cases.coll_point_cases`` (grids 7x5 and 64x40, cars wholly
@@ -53,9 +60,10 @@ them, on the main path and in training (phase 13). Phases:
    b. phase 5's small run in closed loop with the device planner (a 64 m
       lane graph over its 256 px store, 3 iterations): card against CPU,
       loss history rtol 1e-3, final latents atol 1e-4;
-   c. 20 full-width iterations on the host backend after a 2-iteration
-      warm-up: finite losses, trajectories and latents, the counters risen
-      by exactly 1 + 12 x 20 + 12 crops and 20 + 1 footprints (no window
+   c. ``CL_ITERS`` (10) full-width iterations on the host backend after a
+      2-iteration warm-up: finite losses, trajectories and latents, the
+      counters risen by exactly 1 + 12 x 10 + 12 crops and 10 + 1
+      footprints (no window
       or bisect kernel); it/s, then the planner's ms per call and share of
       wall time in a second run of ``CL_FENCED_ITERS`` (5) iterations with
       each call fenced by ``torch.cuda.synchronize()``;
@@ -76,17 +84,24 @@ them, on the main path and in training (phase 13). Phases:
       stats, folders, attackers and attack steps, every file of the JAX
       package's schema; the optimized trajectories and latents within
       the measured bounds ``PARITY_TRAJ_M`` / ``PARITY_LATENT``;
-   c. ``configs/adv_gen_synth_hc_prod.cfg`` (without its ``ckpt`` line,
-      so random weights) at full width with 20 iterations on 6 candidate
-      scenes (one batch of B=4): finite final losses, every JSON of the
-      schema and read back by the port's ``read_adv_scenes``, and the
-      K1/K2 counters, set to 0
-      just before, equal to the launches worked out from the stages run
-      (1 + FT a sampling, 1 + 76 FT a fit, 101 FT a refit, 21 FT + 21
-      footprints an adversarial run, 20 x 16 + FT crops and 20 footprints
-      a solution run; no window or bisect kernel);
-   d. the solution optimization, which random weights never reach through
-      the pipeline: 3 iterations of phase 5's small run on the card against
+   c. ``configs/adv_gen_synth_hc_prod.cfg`` at full width on strive_tpu's
+      trained prior (``--ckpt out/train_synth_prod_torch/checkpoints/
+      latest_model``, converted by ``convert_orbax_ckpt.py``), the
+      config's 200 iterations with its solution stage, on the first 18
+      candidates of the val split in one batch of 8 (the config's B is 4;
+      an iteration is host-bound, and this batch holds this prior's first
+      adversarial successes on an H100, scenes 10 and 17): finite final
+      losses, every
+      JSON of the schema and read back by the port's ``read_adv_scenes``,
+      a solution run exactly when a scene succeeded, and the K1/K2
+      counters, set to 0 just before, equal to the launches worked out
+      from the stages run (1 + FT a sampling, 1 + 76 FT a fit, 101 FT a
+      refit, 201 FT + 201 footprints an adversarial run, 200 x 16 + FT
+      crops and 200 footprints a solution run; no window or bisect
+      kernel); candidates, feasible, adv_success, sol_success and each
+      stage's seconds on the ``pipeline`` line;
+   d. the solution optimization outside the pipeline, whatever c's batch
+      reached: 3 iterations of phase 5's small run on the card against
       the CPU (loss rtol 1e-3, latents atol 1e-4), then 20 iterations at
       ``sol_future_len`` 16 on the main path's model, scenes and store
       (the scenes' futures as the adversarial result): finite, the non-ego
@@ -231,7 +246,24 @@ them, on the main path and in training (phase 13). Phases:
    (``probes.mosaic_bisect.run``) with the K5 counters set to 0: every
    variant correct, and the counters equal to the launches worked out from
    ``REPS`` and each variant's kernel;
-14. prints the probes' and the variants' JSON lines, the ``closed_loop``
+14. (run after 12, before 7) ``parallel/mesh.py`` on the one card (the
+   machine has one, so no scaling is measured), each held at
+   tests/test_torch_distributed.py's bounds (``MGPU_*``) against the same
+   work in this process without a process group:
+   a. one train step of phase 5's small model (2 scenes of 2-4 agents)
+      through ``mesh.launch`` with NCCL at one rank: the gradients, the
+      metrics and the parameters after the Adam step;
+   b. the same step with gloo at two ranks, both on cuda:0 (NCCL takes one
+      card a rank), and 9b's ``configs/adv_gen_synthetic.cfg`` run with
+      ``--batch_size 3`` (a batch padded to 4) through
+      ``adv_scenario_gen.run`` in two gloo ranks on cuda:0: equal stats,
+      folders, attackers and attack steps, trajectories and latents
+      within ``MGPU_TRAJ_M`` / ``MGPU_LATENT``. A collective gloo refused
+      on CUDA tensors would raise here;
+   c. K1 and K2 at a rank's launch shapes of the production config's B=4
+      over 4 ranks (``kernel_cases.shard_args``: 16 poses, 576 cars; over
+      2 they are the main path's), held and timed as in 10a;
+15. prints the probes' and the variants' JSON lines, the ``closed_loop``
    JSON line (B, NA, FT, iters; it/s, planner ms per call and share for
    each backend; the device planner's kernels per call; the parity
    numbers of a; the card), the ``pipeline`` JSON line (phase 9: per-stage
@@ -239,7 +271,10 @@ them, on the main path and in training (phase 13). Phases:
    an hour for the batch, the K1/K2 launches, b's largest differences, the
    cuts in ``reduced``, the card), the ``refine`` and ``training`` JSON
    lines (phases 10 and 11), the ``nuscenes`` JSON line (phase 12), the
-   ``options`` JSON line (phase 13), the ``kernels`` JSON line, the main
+   ``options`` JSON line (phase 13), the ``multi_gpu`` JSON line (phase
+   14), the ``kernels`` JSON line (K1's ``library_ms`` the library
+   yardstick at the main path's shape, ``library`` its other timings and
+   differences), the main
    path's it/s
    beside the card's name and power limit, and last the device JSON line.
    Each kernel's ``path`` names the path its ``launches`` were counted on:
@@ -380,6 +415,90 @@ def profile_iterations(torch, model, scene, store, emb, iters=3):
         for e in (e for e in kern if name in e.key):
             log(f"profile: {name} {e.self_device_time_total / e.count:.2f} us "
                 f"per launch on the main path ({e.count} launches)")
+
+
+def crop_library(torch, queries, args):
+    """K1's function as one library call a map computes it (a yardstick;
+    the port never calls it): for the poses on map m, one
+    ``F.affine_grid`` (a pose's crop is affine in the output grid) and one
+    ``F.grid_sample(mode='nearest', align_corners=True)`` of map m's raster
+    as float ``1 x C x H x W`` on the grid ``1 x (P 256) x 256 x 2``, so the
+    map is never copied a pose. The float rasters and the poses' affine
+    matrices are made beforehand.
+
+    :return: (fn, to_crops): ``fn()`` runs the calls; ``to_crops(fn())``
+        is the (P, C, L, W) result in K1's pose order"""
+    import torch.nn.functional as F
+
+    packed, dx, pos, mapix, lo, wo, C = args[:7]
+    shifts = torch.arange(C, dtype=torch.uint8, device=packed.device)
+    maps = ((packed[:, None] >> shifts[None, :, None, None]) & 1).float()
+    H, Wm = packed.shape[1:]
+    L, W = lo.numel(), wo.numel()
+    # the crop's offsets are linspaces, so affine in affine_grid's [-1, 1]
+    s_l, a_l = (float(lo[-1]) - float(lo[0])) / 2, (float(lo[-1])
+                                                    + float(lo[0])) / 2
+    s_w, a_w = (float(wo[-1]) - float(wo[0])) / 2, (float(wo[-1])
+                                                    + float(wo[0])) / 2
+    p = pos.double()
+    hc, hs = p[:, 2], p[:, 3]
+    d = dx[mapix].double()
+    kx, ky = 2.0 / (d[:, 0] * (Wm - 1)), 2.0 / (d[:, 1] * (H - 1))
+    theta = torch.stack([
+        torch.stack([-s_w * hs * kx, s_l * hc * kx,
+                     kx * (a_l * hc - a_w * hs + p[:, 0]) - 1], -1),
+        torch.stack([s_w * hc * ky, s_l * hs * ky,
+                     ky * (a_l * hs + a_w * hc + p[:, 1]) - 1], -1)],
+        1).float()
+    groups = [(m, (mapix == m).nonzero().squeeze(1))
+              for m in sorted(set(mapix.tolist()))]
+    per_map = [(maps[m:m + 1], theta[idx].contiguous()) for m, idx in groups]
+
+    def fn():
+        return [F.grid_sample(
+            raster, F.affine_grid(th, (th.shape[0], C, L, W),
+                                  align_corners=True).reshape(1, -1, W, 2),
+            mode="nearest", padding_mode="zeros", align_corners=True)
+            for raster, th in per_map]
+
+    def to_crops(outs):
+        crops = torch.empty((pos.shape[0], C, L, W), device=pos.device)
+        for (_, idx), o in zip(groups, outs):
+            crops[idx] = o.reshape(C, idx.numel(), L, W).transpose(0, 1)
+        return crops
+
+    return fn, to_crops
+
+
+def crop_library_entry(torch, queries, crop_kernel, cuda_ms, args):
+    """The library call of ``crop_library`` timed at ``args``, and where
+    its crop differs from K1's: samples within 1e-3 px of a rounding tie
+    (its grid passes through normalized coordinates), off the map (it
+    reads 0, K1 pixel (0, 0)), at a NaN pose (K1 reads position 0), and
+    any other."""
+    fn, to_crops = crop_library(torch, queries, args)
+    ms = cuda_ms(fn, 200)
+    k1 = crop_kernel.map_crop(*args[:7], "nchw")
+    lib = to_crops(fn())
+    packed, dx, pos, mapix, lo, wo = args[:6]
+    xys = queries.rotate_grid(lo[None, :, None], wo[None, None, :],
+                              pos[:, :2], pos[:, 2:4])
+    q = xys / dx[mapix][:, None, None, :]
+    H, W = packed.shape[1:]
+    nan = torch.isnan(xys).any(-1)
+    r = torch.round(q)
+    off = ~nan & ((r[..., 0] < 0) | (r[..., 0] >= W) | (r[..., 1] < 0)
+                  | (r[..., 1] >= H))
+    tie = ~nan & ((q - torch.floor(q) - 0.5).abs() < 1e-3).any(-1)
+    diff = (k1 != lib).any(1)  # (P, L, W)
+    out = {"ms": ms, "samples": int(diff.numel()),
+           "differ": int(diff.sum()),
+           "differ_off_map": int((diff & off).sum()),
+           "differ_near_tie": int((diff & tie & ~off).sum()),
+           "differ_nan_pose": int((diff & nan).sum())}
+    out["differ_other"] = (out["differ"] - out["differ_off_map"]
+                           - out["differ_near_tie"] - out["differ_nan_pose"])
+    return out
 
 
 def window_cases(torch, np, oc, kc, dev):
@@ -826,6 +945,9 @@ CL_DT = 0.5  # the scenes' step (s): the planner's observation spacing
 # iterations of the run with each planner call fenced by synchronize (the
 # closed loop's ms a call and share): fewer than ITERS, for the time limit
 CL_FENCED_ITERS = 5
+# 6b's timed closed-loop runs, a backend: half the main path's ITERS, so
+# that the script, with 9c's full-length pipeline, keeps inside its limit
+CL_ITERS = 10
 CL_MAPS = ("map0", "map1")  # the store's maps, by map_idx
 SMALL_KW = dict(map_bounds=(-4.0, -8.0, 12.0, 8.0), conv_kernels=(5, 3, 3),
                 conv_strides=(2, 2, 2), conv_filters=(8, 8, 16), FT=3)
@@ -951,7 +1073,7 @@ def closed_loop_phase(torch, np, tm, model, scene, store, norm, counters):
     cats = ("car", "truck")
     sn, an = state_normalizer_for(cats), att_normalizer_for(cats)
     lg = synthetic_lanegraph(extent_m=STORE_PX / 4.0, spacing_m=64.0)
-    out = {"B": B, "NA": NA, "FT": FT, "iters": ITERS,
+    out = {"B": B, "NA": NA, "FT": FT, "iters": CL_ITERS,
            "lanegraph": f"synthetic_lanegraph(extent_m={STORE_PX / 4.0}, "
                         "spacing_m=64.0) on both maps",
            "planner_refresh_every": 1}
@@ -1011,19 +1133,20 @@ def closed_loop_phase(torch, np, tm, model, scene, store, norm, counters):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         z, result, _, _, losses, _ = run_optim(
-            run_adv_gen_optim, model, scene, store, emb, ITERS,
+            run_adv_gen_optim, model, scene, store, emb, CL_ITERS,
             planner_rollout_fn=fn)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = counted(counters)
         expected = {k: 0 for k in got}
-        expected.update({"map_crop": 1 + FT * ITERS + FT,
-                         "footprint_coll_point": ITERS + 1})
+        expected.update({"map_crop": 1 + FT * CL_ITERS + FT,
+                         "footprint_coll_point": CL_ITERS + 1})
         if got != expected:
             raise AssertionError(f"{backend} closed loop: launches {got}, "
                                  f"expected {expected}")
         launches = got
-        if losses.shape != (ITERS,) or not bool(torch.isfinite(losses).all()):
+        if (losses.shape != (CL_ITERS,)
+                or not bool(torch.isfinite(losses).all())):
             raise AssertionError(f"{backend} closed loop: losses {losses}")
         if result.shape != (B, NA, FT, 4) \
                 or not bool(torch.isfinite(result).all()) \
@@ -1046,7 +1169,7 @@ def closed_loop_phase(torch, np, tm, model, scene, store, norm, counters):
                   CL_FENCED_ITERS, planner_rollout_fn=fenced)
         torch.cuda.synchronize()
         fenced_wall = time.perf_counter() - t0
-        entry = {"iters_per_sec": ITERS / wall,
+        entry = {"iters_per_sec": CL_ITERS / wall,
                  "planner_calls": len(times),
                  "planner_ms_per_call": 1e3 * sum(times) / len(times),
                  "planner_share": sum(times) / fenced_wall,
@@ -1055,16 +1178,22 @@ def closed_loop_phase(torch, np, tm, model, scene, store, norm, counters):
         if backend == "device":
             entry.update(planner_profile(torch, card_fn, result))
         out[backend] = entry
-        log(f"{backend} closed loop: {ITERS} iterations, losses "
+        log(f"{backend} closed loop: {CL_ITERS} iterations, losses "
             f"{losses[0]:.4f} -> {losses[-1]:.4f}, {entry}")
     return out, launches
 
 
 PIPE_CFG = "configs/adv_gen_synth_hc_prod.cfg"  # the full-width pipeline
-PIPE_ITERS = 20  # the config's 200, cut to fit the script's time limit
-# the config's 48 candidates, cut to the first 6 of the val split, whose
-# candidates 0, 2, 4 and 5 are feasible: one batch of B=4
-PIPE_SCENES = 6
+# strive_tpu's trained prior of that config (its ckpt line names the orbax
+# store), converted by convert_orbax_ckpt.py
+PIPE_CKPT = "out/train_synth_prod_torch/checkpoints/latest_model"
+# the config's 48 candidates, cut to the first 18 of the val split, in one
+# batch of 8 in place of the config's two of 4: an iteration is host-bound
+# and takes about as long for 8 scenes as for 4, and scenes 10 and 17 of
+# this batch are this prior's first adversarial successes on an H100, so
+# the solution stage runs inside the pipeline
+PIPE_SCENES, PIPE_BATCH = 18, 8
+SOL_ITERS = 20  # 9d's solution run at full width
 PARITY_CFG = "configs/adv_gen_synthetic.cfg"  # b: card against CPU
 # b's bounds on the optimized trajectories (m) and latents. Not 1e-2 /
 # 1e-3: the 75-iteration fit amplifies float noise (ROADMAP §3). Measured
@@ -1135,12 +1264,15 @@ def scenario_jsons(np, out):
     return res
 
 
-def pipeline_parity(np, card_out, cpu_out, card_stats, cpu_stats):
-    """b: the same run on the card and on the CPU: equal stats, folders,
-    attackers and attack steps; :return: the largest trajectory (m) and
-    latent differences, held at PARITY_TRAJ_M / PARITY_LATENT."""
+def pipeline_parity(np, card_out, cpu_out, card_stats, cpu_stats,
+                    bounds=(PARITY_TRAJ_M, PARITY_LATENT), where="b"):
+    """b: the same run on the card and on the CPU (14b: in two ranks and in
+    one process): equal stats, folders, attackers and attack steps;
+    :return: the largest trajectory (m) and latent differences, held at
+    ``bounds``."""
     if card_stats != cpu_stats:
-        raise AssertionError(f"stats: card {card_stats}, CPU {cpu_stats}")
+        raise AssertionError(f"{where}. stats: {card_stats} against "
+                             f"{cpu_stats}")
     a, b = scenario_jsons(np, card_out), scenario_jsons(np, cpu_out)
     worst = {"traj_m": 0.0, "latent": 0.0, "scenes": 0}
     for d in FOLDERS:
@@ -1160,9 +1292,9 @@ def pipeline_parity(np, card_out, cpu_out, card_stats, cpu_stats):
                     key = "latent" if k.startswith("z_") else "traj_m"
                     worst[key] = max(worst[key], diff)
     if not worst["scenes"]:
-        raise AssertionError("b: no scene was saved")
-    if worst["traj_m"] > PARITY_TRAJ_M or worst["latent"] > PARITY_LATENT:
-        raise AssertionError(f"b: card against CPU {worst}")
+        raise AssertionError(f"{where}. no scene was saved")
+    if worst["traj_m"] > bounds[0] or worst["latent"] > bounds[1]:
+        raise AssertionError(f"{where}. differences {worst} over {bounds}")
     return worst
 
 
@@ -1175,7 +1307,7 @@ SOL_FT = 16  # the configs' sol_future_len
 def solution_stage(torch, tm, model, scene, store, norm, counters):
     """Phase 9d: the solution optimization, which random weights never
     reach through the pipeline (no adversarial success): 3 iterations of
-    phase 5's small run on the card against the CPU, then PIPE_ITERS
+    phase 5's small run on the card against the CPU, then SOL_ITERS
     iterations at full width on the main path's model, scenes and store,
     with the scenes' futures as the adversarial result.
 
@@ -1205,13 +1337,13 @@ def solution_stage(torch, tm, model, scene, store, norm, counters):
     t0 = time.perf_counter()
     z, sol, losses = run_find_solution_optim(
         model, pri[0], final, SOL_FT, 0.05, SOL_WEIGHTS, scene, store,
-        PIPE_ITERS, emb, pri, pri)
+        SOL_ITERS, emb, pri, pri)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = counted(counters)
     expected = dict.fromkeys(launches, 0)
-    expected.update(map_crop=PIPE_ITERS * SOL_FT + FT,
-                    footprint_coll_point=PIPE_ITERS)
+    expected.update(map_crop=SOL_ITERS * SOL_FT + FT,
+                    footprint_coll_point=SOL_ITERS)
     if launches != expected:
         raise AssertionError(f"d. launches {launches}, expected {expected}")
     if not (bool(torch.isfinite(losses).all())
@@ -1226,8 +1358,8 @@ def solution_stage(torch, tm, model, scene, store, norm, counters):
                                   att_normalizer_for(cats))
               for b in range(scene.B)]
     out = {"B": scene.B, "NA": scene.NA, "sol_future_len": SOL_FT,
-           "iters": PIPE_ITERS, "seconds": secs,
-           "seconds_per_iteration": secs / PIPE_ITERS,
+           "iters": SOL_ITERS, "seconds": secs,
+           "seconds_per_iteration": secs / SOL_ITERS,
            "final_loss": float(losses[-1]), "solved": solved,
            "launches": {k: launches[k] for k in ("map_crop",
                                                  "footprint_coll_point")},
@@ -1320,22 +1452,17 @@ def pipeline_phase(torch, np, rates, card, counters, kernels):
         f"{runs['cuda'][1]}, folders and attacks; largest differences "
         f"{line['b_card_vs_cpu']}")
 
-    # --- c. the full-width pipeline -----------------------------------------
-    os.makedirs(build_dir, exist_ok=True)
-    cfg = os.path.join(build_dir, os.path.basename(PIPE_CFG))
-    with open(os.path.join(ROOT, PIPE_CFG)) as f:  # random weights: no ckpt
-        lines = [l for l in f if not l.startswith("ckpt:")]
-    with open(cfg, "w") as f:
-        f.writelines(lines)
+    # --- c. the full-width pipeline on the trained prior --------------------
     out = os.path.join(build_dir, "full_width")
-    argv = ["-c", cfg, "--num_iters", str(PIPE_ITERS), "--synth_scenes",
-            str(PIPE_SCENES), "--max_scenes", str(PIPE_SCENES), "--device",
-            "cuda", "--out", out]
+    argv = ["-c", os.path.join(ROOT, PIPE_CFG), "--ckpt",
+            os.path.join(ROOT, PIPE_CKPT), "--max_scenes", str(PIPE_SCENES),
+            "--batch_size", str(PIPE_BATCH), "--device", "cuda", "--out",
+            out]
     pc = gen.parse_cfg(argv)
     timings = {}
     zero(counters)
     t0 = time.perf_counter()
-    stats = run_pipeline(argv, timings)
+    stats = quiet(gen.main, argv, timings, max_batches=1)
     wall = time.perf_counter() - t0
     launches = counted(counters)
     calls = timings["calls"]
@@ -1361,21 +1488,27 @@ def pipeline_phase(torch, np, rates, card, counters, kernels):
             b for _, b, _ in timings["batches"]):
         raise AssertionError(f"c. {n_json} scenario files for batches "
                              f"{timings['batches']}")
+    if bool(stats["adv_success"]) != bool(calls.get("solution")):
+        raise AssertionError(f"c. {stats['adv_success']} adversarial "
+                             f"successes, {calls.get('solution', 0)} "
+                             "solution runs")
     for name in ("map_crop", "footprint_coll_point"):
         kernels[name]["pipeline_launches"] = launches[name]
     secs = timings["seconds"]
     batch_secs = sum(t for t, _, _ in timings["batches"])
     batch_scenes = sum(b for _, b, _ in timings["batches"])
+    batch_adv = sum(a for _, _, a in timings["batches"])
     line.update({
-        "config": f"{PIPE_CFG} without its ckpt line",
-        "reduced": {"num_iters": "200 -> 20",
-                    "synth_scenes": f"48 -> {PIPE_SCENES} (one batch of 4)",
-                    "weights": "random, Flax's distributions seeded 0 "
-                               "(init_model_params), in place of the "
-                               "trained checkpoint"},
+        "config": f"{PIPE_CFG} with --ckpt {PIPE_CKPT}",
+        "reduced": {"candidates": f"48 -> the first {PIPE_SCENES} of the "
+                                  "val split",
+                    "batch_size": f"4 -> {PIPE_BATCH}: one batch"},
         "B": pc.batch_size, "NA": pc.max_agents, "FT": FTp,
         "sol_future_len": SFL, "num_samples": pc.num_samples,
-        "num_iters": it, "stats": stats, "batches": timings["batches"],
+        "num_iters": it, "stats": stats,
+        "candidates": stats["candidates"], "feasible": stats["feasible"],
+        "adv_success": stats["adv_success"],
+        "sol_success": stats["sol_success"], "batches": timings["batches"],
         "stage_calls": calls,
         "stage_seconds": secs,
         "sample_seconds_per_candidate":
@@ -1383,12 +1516,170 @@ def pipeline_phase(torch, np, rates, card, counters, kernels):
         "final_loss": losses,
         "wall_seconds": wall,
         "candidate_scenes_per_hour": batch_scenes * 3600.0 / batch_secs,
+        "adv_successes_per_hour": batch_adv * 3600.0 / batch_secs,
         "launches": {k: launches[k] for k in ("map_crop",
                                               "footprint_coll_point")},
     })
     log(f"c. full-width pipeline: {stats}, batches {timings['batches']}, "
         f"stages {secs}, launches {line['launches']} as worked out, JSONs "
         f"read back ({n_json})")
+    return line
+
+
+# phase 14's bounds, tests/test_torch_distributed.py's: each leaf's gradient
+# within 1e-5 of its norm or of the one-process step's own float noise
+# there (its gradient against the same batch's with the rows reversed),
+# the losses within 1e-6 (relative), compute_err's metrics at rtol 1e-4 /
+# atol 1e-5 (ang_err atol 1e-3 deg), the parameters after the step within
+# 1e-6 where |g| >= 1e-6 (within 2 lr elsewhere: Adam's first step there
+# is noise), the pipeline's trajectories and latents within 9b's
+# PARITY_TRAJ_M / PARITY_LATENT (two ranks on an H100 against one
+# process: 0.185 m / 0.206, a rank's smaller batch rounded otherwise and
+# amplified by the fits, ROADMAP §3)
+MGPU_GRAD_REL, MGPU_LOSS_REL = 1e-5, 1e-6
+MGPU_TRAJ_M, MGPU_LATENT = PARITY_TRAJ_M, PARITY_LATENT
+MGPU_ERR_TOL = {"pos_err": (1e-4, 1e-5), "ang_err": (1e-4, 1e-3),
+                "z_logprob": (1e-4, 1e-5), "z_mdist": (1e-4, 1e-5)}
+
+
+def multi_gpu_train_step(reverse=False):
+    """Phase 14: one ``Trainer`` step of phase 5's small model (2 scenes of
+    2-4 agents; cuDNN deterministic, TF32 off) on the card, in a rank of
+    ``mesh.launch`` (its rows of the batch) or, outside a process group,
+    in this process (``reverse``: the batch's rows in reverse order).
+
+    :return: (gradients, metrics, flat parameters after the step, whether
+        every rank holds the same parameters), on the CPU"""
+    import torch
+    import torch.distributed as dist
+    from strive_tpu_torch.model import traffic_model as tm
+    from strive_tpu_torch.normalize import (att_normalizer_for,
+                                            state_normalizer_for)
+    from strive_tpu_torch.parallel import mesh
+    from strive_tpu_torch.train import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dev = mesh.rank_device() if dist.is_initialized() else torch.device(DEV)
+    cats = ("car", "truck")
+    sn, an = state_normalizer_for(cats), att_normalizer_for(cats)
+    m, st, sc, _ = small_setup(torch, tm, tm.NormConfig.from_normalizers(
+        sn, an), dev)
+    trainer = Trainer(m, TRAIN_W, sn, an, lr=1e-4)
+    eps, eps_samp = trainer.draw_noise(sc)
+    if reverse:
+        sc, eps, eps_samp = sc.take([1, 0]), eps[[1, 0]], eps_samp[[1, 0]]
+    grads, metrics = trainer.gradients(sc, st, 0.002, eps, eps_samp)
+    trainer.train_step(sc, st, 0.002, eps, eps_samp)
+    flat = torch.cat([p.detach().reshape(-1) for p in m.parameters()])
+    same = bool((mesh.gather_rows(flat[None]) == flat).all())
+    return ([g.cpu() for g in grads], {k: float(v) for k, v in
+                                       metrics.items()}, flat.cpu(), same)
+
+
+def multi_gpu_pipeline(argv):
+    """Phase 14b: 9b's small entry-point run (``torch_default_init``'s
+    weights, cuDNN deterministic, TF32 off) in this process, or in a rank
+    of ``mesh.launch``: :return: the stats"""
+    import torch
+    import torch.distributed as dist
+    from strive_tpu_torch.parallel import mesh
+    from strive_tpu_torch.scripts import adv_scenario_gen as gen
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    real = gen.init_params
+    gen.init_params = torch_default_init
+    try:
+        return quiet(gen.run, gen.parse_cfg(argv), mesh.rank_device()
+                     if dist.is_initialized() else torch.device(DEV))
+    finally:
+        gen.init_params = real
+
+
+def same_step(torch, got, want, noise, where):
+    """A step of ``multi_gpu_train_step`` against the one-process step at
+    phase 14's bounds; :return: the largest differences"""
+    (g, m, p, same), (g1, m1, p1, _) = got, want
+    if not same:
+        raise AssertionError(f"{where}: the ranks' parameters differ")
+    worst = {"grad_rel": 0.0, "loss_rel": 0.0, "params": 0.0}
+    for i, (a, b) in enumerate(zip(g, g1)):
+        err = float((a - b).abs().max())
+        if err > max(MGPU_GRAD_REL * float(b.norm()), float(noise[i])):
+            raise AssertionError(f"{where}: gradient leaf {i} {err:.3g} "
+                                 f"apart (norm {float(b.norm()):.3g}, "
+                                 f"noise {float(noise[i]):.3g})")
+        worst["grad_rel"] = max(worst["grad_rel"], err / float(b.norm()))
+    if sorted(m) != sorted(m1):
+        raise AssertionError(f"{where}: metrics {sorted(m)}")
+    for k, want_k in m1.items():
+        rtol, atol = MGPU_ERR_TOL.get(k, (MGPU_LOSS_REL, 0.0))
+        if abs(m[k] - want_k) > atol + rtol * abs(want_k):
+            raise AssertionError(f"{where}: {k} {m[k]} against {want_k}")
+        if k not in MGPU_ERR_TOL:
+            worst["loss_rel"] = max(worst["loss_rel"], abs(m[k] - want_k)
+                                    / max(abs(want_k), 1e-30))
+    steady = torch.cat([x.reshape(-1) for x in g1]).abs() >= 1e-6
+    diff = (p - p1).abs()
+    worst["params"] = float(diff[steady].max())
+    if worst["params"] > 1e-6 or float(diff.max()) > 2 * 1e-4:
+        raise AssertionError(f"{where}: parameters {worst['params']} apart")
+    return worst
+
+
+def multi_gpu_phase(torch, np, rates, card, kernels):
+    """Phase 14: ``parallel/mesh.py`` on the one card (module doc).
+
+    :return: the ``multi_gpu`` JSON line's dict"""
+    from strive_tpu_torch import kernel_cases as kc
+    from strive_tpu_torch.parallel import mesh
+
+    line = {"multi_gpu": "parallel/mesh.py on one card", "card": card,
+            "scaling": "not measured: the machine has one card"}
+    t0 = time.perf_counter()
+    one = multi_gpu_train_step()
+    rev = multi_gpu_train_step(reverse=True)
+    noise = [(a - b).abs().max() for a, b in zip(rev[0], one[0])]
+    nccl = quiet(mesh.launch, multi_gpu_train_step, (), ["cuda:0"], "nccl")
+    line["a_nccl_1_rank_step"] = same_step(torch, nccl, one, noise, "14a")
+    log("14a. a train step through NCCL at 1 rank: "
+        f"{line['a_nccl_1_rank_step']}")
+    gloo = quiet(mesh.launch, multi_gpu_train_step, (), ["cuda:0"] * 2,
+                 "gloo")
+    line["b_gloo_2_ranks_step"] = same_step(torch, gloo, one, noise, "14b")
+    log(f"14b. a train step through gloo at 2 ranks on cuda:0: "
+        f"{line['b_gloo_2_ranks_step']}")
+    build_dir = os.path.join(ROOT, "build", "chip_smoke")
+    runs = {}
+    for n in (1, 2):
+        out = os.path.join(build_dir, f"multi_gpu_{n}")
+        argv = ["-c", os.path.join(ROOT, PARITY_CFG), "--num_iters", "3",
+                "--synth_scenes", "6", "--max_scenes", "6", "--batch_size",
+                "3", "--device", "cuda", "--out", out]
+        stats = (multi_gpu_pipeline(argv) if n == 1 else quiet(
+            mesh.launch, multi_gpu_pipeline, (argv,), ["cuda:0"] * 2,
+            "gloo"))
+        runs[n] = out, stats
+    line["b_gloo_2_ranks_pipeline"] = pipeline_parity(
+        np, runs[2][0], runs[1][0], runs[2][1], runs[1][1],
+        bounds=(MGPU_TRAJ_M, MGPU_LATENT), where="14b")
+    line["b_pipeline_stats"] = runs[1][1]
+    log(f"14b. {PARITY_CFG} --batch_size 3 through gloo at 2 ranks on "
+        f"cuda:0 against one process: stats {runs[1][1]}, largest "
+        f"differences {line['b_gloo_2_ranks_pipeline']}")
+    # a rank's launch shapes at PIPE_CFG's B=4 over 4 ranks (over 2 they
+    # are the main path's: 32 poses, 1,152 cars)
+    k1, k2 = kc.shard_args(torch.device("cuda"), 4)
+    hold_shapes(torch, rates, kernels, [
+        ("map_crop", "shard_shape", "a decode step of one rank of 4 at "
+         "B=4: 1 scene x 16 agents = 16 poses, 256 px", k1),
+        ("footprint_coll_point", "shard_shape", "the adversarial loss of "
+         "one rank of 4 at B=4: 1 scene x 16 agents x 36 interpolated "
+         "poses = 576 cars", k2)], "14c")
+    line["phase_seconds"] = time.perf_counter() - t0
     return line
 
 
@@ -1440,8 +1731,6 @@ def new_shapes(torch, rates, kernels):
     plain version (K1 bit-exact; K2 valid/frac exact, coll_pt within
     phase 4's tolerance), timed beside it and its bound."""
     from strive_tpu_torch import kernel_cases as kc
-    from strive_tpu_torch.maps import crop_kernel, queries
-    from strive_tpu_torch.utils.timing import cuda_ms
 
     dev = torch.device("cuda")
     shapes = [
@@ -1455,6 +1744,18 @@ def new_shapes(torch, rates, kernels):
         ("footprint_coll_point", "training_shape", "the training loss's "
          "ego prior: B=8 x 12 poses = 96 cars", kc.training_k2(dev)[1]),
     ]
+    hold_shapes(torch, rates, kernels, shapes, "10a")
+
+
+def hold_shapes(torch, rates, kernels, shapes, where):
+    """K1 and K2 at ``shapes`` [(kernel, key, what, args)], each against
+    its plain version (K1 bit-exact, also in bf16; K2 valid/frac exact,
+    coll_pt within phase 4's tolerance), timed beside it and its bound:
+    ``kernels[kernel][key]``."""
+    from strive_tpu_torch import kernel_cases as kc
+    from strive_tpu_torch.maps import crop_kernel, queries
+    from strive_tpu_torch.utils.timing import cuda_ms
+
     for name, key, what, args in shapes:
         kern = getattr(crop_kernel, name)
         plain = getattr(crop_kernel, f"{name}_plain")
@@ -1462,8 +1763,8 @@ def new_shapes(torch, rates, kernels):
             got, want = kern(*args), plain(*args)
             torch.cuda.synchronize()
             if not torch.equal(got, want):
-                raise AssertionError(f"10a. map_crop at {what} differs from "
-                                     "plain")
+                raise AssertionError(f"{where}. map_crop at {what} differs "
+                                     "from plain")
             err = float((got - want).abs().amax())
             del got, want
             work = crop_work
@@ -1477,9 +1778,10 @@ def new_shapes(torch, rates, kernels):
             rates, *work(torch, queries, args))
         if name == "map_crop":
             entry.update(bf16_crop_entry(torch, crop_kernel, queries,
-                                         cuda_ms, rates, args, "10a"))
+                                         cuda_ms, rates, args, where))
         kernels[name][key] = entry
-        log(f"10a. {name} at {what}: max err {err:.3g}; {entry['ms']:.4f} ms "
+        log(f"{where}. {name} at {what}: max err {err:.3g}; "
+            f"{entry['ms']:.4f} ms "
             f"(plain {entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f}"
             f" ms by {entry['bound_by']})")
         torch.cuda.empty_cache()
@@ -1696,9 +1998,7 @@ def training_phase(torch, np, tm, norm, card, counters, kernels, refine_cfg):
             # the step's gradients, from the noise run_epoch then draws
             eps, eps_samp = trainer.draw_noise(sc)
             trainer.generator.manual_seed(0)
-            with torch.enable_grad():
-                loss, _ = trainer._loss(sc, st, 0.002, eps, eps_samp)
-                grads = torch.autograd.grad(loss, trainer.params)
+            grads, _ = trainer.gradients(sc, st, 0.002, eps, eps_samp)
             grads = {k: g.detach().cpu() for (k, _), g
                      in zip(m.named_parameters(), grads)}
             met, _ = trainer.run_epoch([sc], st, 0.002)
@@ -2690,13 +2990,30 @@ def main():
                           20)
     n_pix = B * NA * MAP_PX * MAP_PX
     k1_bound, k1_by = bound_ms(rates, *crop_work(torch, queries, k1_args))
+    # the library's nearest-neighbour resampling, beside K1 (never called
+    # by the port): the main path's 32 poses, training's 128, the edge poses
+    k1_128 = kc.decode_crop_args(dev, 8)
+    library = {
+        "call": "per map: F.affine_grid + F.grid_sample(mode='nearest', "
+                "align_corners=True), grid 1 x (P 256) x 256 x 2",
+        "main_path_32_poses": crop_library_entry(
+            torch, queries, crop_kernel, cuda_ms, k1_args),
+        "training_128_poses": {
+            **crop_library_entry(torch, queries, crop_kernel, cuda_ms,
+                                 k1_128),
+            "k1_ms": cuda_ms(lambda: crop_kernel.map_crop(*k1_128), 200)},
+        "edge_poses": crop_library_entry(torch, queries, crop_kernel,
+                                         cuda_ms, cases[2])}
+    del k1_128
     kernels["map_crop"] = dict(
         name="map_crop", route="cuda", source="strive_tpu_torch/csrc/crop.cu",
         replaces="strive_tpu/maps/crop_kernel.py:201", max_abs_err=k1_err,
         ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound, bound_by=k1_by,
-        library_ms=None, edge_cases=2 * len(edge_args), quotient_sweep=sweep)
+        library_ms=library["main_path_32_poses"]["ms"], library=library,
+        edge_cases=2 * len(edge_args), quotient_sweep=sweep)
     log(f"K1 map_crop bit-exact on {len(cases)} cases; {k1_ms:.4f} ms "
-        f"(plain {k1_plain_ms:.4f} ms, bound {k1_bound:.4f} ms by {k1_by})")
+        f"(plain {k1_plain_ms:.4f} ms, bound {k1_bound:.4f} ms by {k1_by}); "
+        f"the library's affine_grid + grid_sample {library}")
 
     # --- 4. K2 against its plain version -----------------------------------
     k2_args = kc.main_path_coll_point_args(  # 1152 cars: B x NA x 36 poses
@@ -2823,6 +3140,9 @@ def main():
     nusc = nusc_phase(torch, np, rates, card, counters, kernels, dev)
     torch.cuda.empty_cache()
 
+    # --- 14. parallel/mesh.py on the one card ------------------------------
+    multi_gpu = multi_gpu_phase(torch, np, rates, card, kernels)
+
     # --- 7. K3, K4a, K4b and the gather-probe path -------------------------
     k1_gelem_s = n_pix / (k1_ms * 1e-3) / 1e9
     window_entries, probes = window_phase(torch, rates, card, k1_gelem_s)
@@ -2839,6 +3159,7 @@ def main():
     print(json.dumps(training))
     print(json.dumps(nusc))
     print(json.dumps(options))
+    print(json.dumps(multi_gpu))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"main_path": "embed + open-loop adv optimization",
                       "B": B, "NA": NA, "FT": FT, "crop_px": MAP_PX,

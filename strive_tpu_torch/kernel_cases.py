@@ -154,6 +154,17 @@ def refine_k2(device, B=10, NA=16, samp_future_len=16):
     return store, main_path_coll_point_args(store, scene, *stats)
 
 
+def shard_args(device, ranks, B=4, NA=16, FT=12):
+    """K1's and K2's arguments at one rank's rows of a batch of B scenes x
+    NA agents split over ``ranks`` (``adv_scenario_gen --mesh_devices``;
+    B=4 x NA=16 at ``configs/adv_gen_synth_hc_prod.cfg``): a decode step of
+    B / ranks x NA poses, and the adversarial loss's B / ranks x NA x 3 FT
+    interpolated cars. Over 2 ranks these are the main path's 32 poses and
+    1,152 cars; over 4, 16 poses and 576 cars."""
+    b = B // ranks
+    return decode_crop_args(device, b, NA), refine_k2(device, b, NA, FT)[1]
+
+
 def training_k2(device, B=8, FT=12):
     """``(store, args)``: K2's inputs at the training loss's shape (the
     ego-only environment prior of ``traffic_model_loss``, no

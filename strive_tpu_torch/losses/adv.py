@@ -5,6 +5,10 @@ TgtMatchingLoss :14-51, AdvGenLoss :53-262, AvoidCollLoss :264-341,
 check_behind :646-673): the per-scene softmin over the flat node dimension
 is a masked softmax over the (NA, T) axes of each scene. All trajectories
 UNNORMALIZED.
+
+Each objective takes ``batch``, the reductions over the scene batch that
+its means divide by: the whole batch in this process by default, a rank's
+share of it under ``parallel.mesh.ShardedBatch``.
 """
 
 from __future__ import annotations
@@ -12,16 +16,13 @@ from __future__ import annotations
 import torch
 
 from ..geometry import interp_traj
-from .penalties import (env_coll_penalties, masked_mean, motion_prior_nll,
-                        veh_coll_penalties)
-
-
-def _weighted_mean(x, w):
-    return torch.sum(x * w) / torch.clamp(torch.sum(w), min=1.0)
+from .common import WHOLE_BATCH
+from .penalties import env_coll_penalties, motion_prior_nll, veh_coll_penalties
 
 
 def tgt_matching_loss(future_pred, tgt_traj, z, prior_out, weights,
-                      frame_weights=None, agent_mask=None, ref_compat=True):
+                      frame_weights=None, agent_mask=None, ref_compat=True,
+                      batch=WHOLE_BATCH):
     """Match a decoded future to a target while staying likely under the prior.
 
     :param future_pred, tgt_traj: (..., 4) UNNORMALIZED, same shape
@@ -33,15 +34,15 @@ def tgt_matching_loss(future_pred, tgt_traj, z, prior_out, weights,
     tgt_loss_mean = 0.0
     if weights.get("match_ext", 0.0) > 0.0:
         tgt_loss = torch.sum((future_pred - tgt_traj) ** 2, dim=-1)
-        tgt_loss_mean = (torch.mean(tgt_loss) if frame_weights is None
-                         else _weighted_mean(tgt_loss, frame_weights))
+        tgt_loss_mean = (batch.mean(tgt_loss) if frame_weights is None
+                         else batch.weighted_mean(tgt_loss, frame_weights))
         loss = loss + weights["match_ext"] * tgt_loss_mean
         out["match_ext_loss"] = tgt_loss_mean
 
     if weights.get("motion_prior_ext", 0.0) > 0.0:
         nll = motion_prior_nll(z, prior_out)
-        nll_mean = (torch.mean(nll) if agent_mask is None
-                    else _weighted_mean(nll, agent_mask.to(nll.dtype)))
+        nll_mean = (batch.mean(nll) if agent_mask is None
+                    else batch.weighted_mean(nll, agent_mask.to(nll.dtype)))
         prior_term = tgt_loss_mean if ref_compat else nll_mean
         loss = loss + weights["motion_prior_ext"] * prior_term
         out["motion_prior_ext_loss"] = nll_mean
@@ -63,7 +64,8 @@ def check_behind(attacker_fut, tgt_fut, crash_min_infront):
 
 def adv_gen_loss(future_pred, tgt_traj, z, prior_out, *, lw, mask, mapixes,
                  packed, dx, init_z, weights, veh_coll_buffer=0.0,
-                 crash_min_t=0, crash_min_infront=None, attack_agt_mask=None):
+                 crash_min_t=0, crash_min_infront=None, attack_agt_mask=None,
+                 batch=WHOLE_BATCH):
     """The adversarial objective (reference ``adv_gen_nusc.py:53-262``).
 
     :param future_pred: (B, NA, T, 4) UNNORMALIZED; agent 0 models the planner
@@ -99,9 +101,10 @@ def adv_gen_loss(future_pred, tgt_traj, z, prior_out, *, lw, mask, mapixes,
                                     crash_min_infront)
         behind_traj = torch.all(behind_steps | ~valid, dim=2, keepdim=True)
         behind_traj = behind_traj.expand_as(behind_steps)
-        # if EVERY candidate is behind, ignore the filter (reference :120-122)
-        n_valid = torch.sum(valid)
-        all_behind = (torch.sum(behind_traj & valid)
+        # if EVERY candidate of the batch is behind, ignore the filter
+        # (reference :120-122)
+        n_valid = batch.total(valid)
+        all_behind = (batch.total(behind_traj & valid)
                       == torch.clamp(n_valid, min=1))
         behind_traj = torch.where(all_behind, False, behind_traj)
         min_dist_in = torch.where(behind_traj, torch.inf, min_dist_in)
@@ -129,8 +132,9 @@ def adv_gen_loss(future_pred, tgt_traj, z, prior_out, *, lw, mask, mapixes,
         softmin * torch.where(torch.isfinite(dist_sq), dist_sq, 0.0)
         * valid.reshape(B, NA * Tp), dim=1)
     if weights.get("adv_crash", 0.0) > 0.0:
-        loss = loss + weights["adv_crash"] * torch.mean(adv_crash)
-        out["adv_crash_loss"] = torch.mean(adv_crash)
+        adv_crash_mean = batch.mean(adv_crash)
+        loss = loss + weights["adv_crash"] * adv_crash_mean
+        out["adv_crash_loss"] = adv_crash_mean
 
     # prior reweighting: likely attackers get the *_atk weights
     prior_reweight = 1.0 - torch.sum(softmin.detach().reshape(B, NA, Tp),
@@ -140,7 +144,7 @@ def adv_gen_loss(future_pred, tgt_traj, z, prior_out, *, lw, mask, mapixes,
         nll = motion_prior_nll(z, prior_out)
         coeff = (prior_reweight * weights["motion_prior"]
                  + (1.0 - prior_reweight) * weights.get("motion_prior_atk", 0.0))
-        mp = _weighted_mean(nll * coeff, nonego.to(nll.dtype))
+        mp = batch.weighted_mean(nll * coeff, nonego.to(nll.dtype))
         loss = loss + mp
         out["motion_prior_loss"] = mp
 
@@ -153,7 +157,7 @@ def adv_gen_loss(future_pred, tgt_traj, z, prior_out, *, lw, mask, mapixes,
 
     if weights.get("coll_veh", 0.0) > 0.0:
         pair_nonego = (idx[None, :, None] > 0) & (idx[None, None, :] > 0)
-        veh_loss = masked_mean(pens, coll & pair_nonego[:, None])
+        veh_loss = batch.masked_mean(pens, coll & pair_nonego[:, None])
         loss = loss + weights["coll_veh"] * veh_loss
         out["coll_veh_loss"] = veh_loss
 
@@ -163,14 +167,15 @@ def adv_gen_loss(future_pred, tgt_traj, z, prior_out, *, lw, mask, mapixes,
             idx[None, :, None] == 0, w_vec[:, None, :],
             torch.where(idx[None, None, :] == 0, w_vec[:, :, None], 1.0))
         ego_pair = (idx[None, :, None] == 0) | (idx[None, None, :] == 0)
-        plan_loss = masked_mean(pens * wmat[:, None], coll & ego_pair[:, None])
+        plan_loss = batch.masked_mean(pens * wmat[:, None],
+                                      coll & ego_pair[:, None])
         loss = loss + weights["coll_veh_plan"] * plan_loss
         out["coll_veh_plan_loss"] = plan_loss
 
     if weights.get("coll_env", 0.0) > 0.0:
         env_pens, env_valid = env_coll_penalties(
             fut_interp, lw, nonego, mapixes, packed, dx)
-        env_loss = masked_mean(env_pens, env_valid)
+        env_loss = batch.masked_mean(env_pens, env_valid)
         loss = loss + weights["coll_env"] * env_loss
         out["coll_env_loss"] = env_loss
 
@@ -189,7 +194,7 @@ def adv_gen_loss(future_pred, tgt_traj, z, prior_out, *, lw, mask, mapixes,
 
 def avoid_coll_loss(future_pred, z, prior_out, *, lw, mask, mapixes, packed,
                     dx, init_z, weights, veh_coll_buffer=0.0,
-                    single_veh_idx=None, z_mask=None):
+                    single_veh_idx=None, z_mask=None, batch=WHOLE_BATCH):
     """Collision-avoidance objective (reference ``adv_gen_nusc.py:264-341``).
 
     :param future_pred: (B, NA, T, 4) UNNORMALIZED
@@ -212,7 +217,7 @@ def avoid_coll_loss(future_pred, z, prior_out, *, lw, mask, mapixes, packed,
         pens, coll = veh_coll_penalties(fut_interp, lw, mask,
                                         buffer_dist=veh_coll_buffer,
                                         single_veh_idx=single_veh_idx)
-        veh_loss = masked_mean(pens, coll)
+        veh_loss = batch.masked_mean(pens, coll)
         loss = loss + weights["coll_veh"] * veh_loss
         out["coll_veh_loss"] = veh_loss
 
@@ -224,19 +229,19 @@ def avoid_coll_loss(future_pred, z, prior_out, *, lw, mask, mapixes, packed,
             traj, env_mask, env_lw = fut_interp, mask, lw
         env_pens, env_valid = env_coll_penalties(traj, env_lw, env_mask,
                                                  mapixes, packed, dx)
-        env_loss = masked_mean(env_pens, env_valid)
+        env_loss = batch.masked_mean(env_pens, env_valid)
         loss = loss + weights["coll_env"] * env_loss
         out["coll_env_loss"] = env_loss
 
     if weights.get("motion_prior", 0.0) > 0.0:
         nll = motion_prior_nll(z, prior_out)
-        mp = _weighted_mean(nll, zw)
+        mp = batch.weighted_mean(nll, zw)
         loss = loss + weights["motion_prior"] * mp
         out["motion_prior_loss"] = mp
 
     if weights.get("init_z", 0.0) > 0.0:
         sq = torch.sum((init_z - z) ** 2, dim=-1)
-        init_loss = _weighted_mean(sq, zw)
+        init_loss = batch.weighted_mean(sq, zw)
         loss = loss + weights["init_z"] * init_loss
         out["init_loss"] = init_loss
 

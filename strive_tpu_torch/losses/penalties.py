@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from ..maps.queries import get_coll_point, linspace
-from .common import log_normal
+from .common import WHOLE_BATCH, log_normal
 
 
 def vehicle_circles(traj, lw, num_circ=5):
@@ -68,9 +68,7 @@ def veh_coll_penalties(traj, lw, mask, num_circ=5, buffer_dist=0.0,
 
 def masked_mean(x, mask, fallback=0.0):
     """Mean of x over True entries of mask; ``fallback`` when empty."""
-    cnt = torch.sum(mask)
-    s = torch.sum(torch.where(mask, x, 0.0))
-    return torch.where(cnt > 0, s / torch.clamp(cnt, min=1), fallback)
+    return WHOLE_BATCH.masked_mean(x, mask, fallback)
 
 
 def env_coll_penalties(traj, lw, mask, mapixes, packed, dx):

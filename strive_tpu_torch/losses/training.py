@@ -14,19 +14,15 @@ import numpy as np
 import torch
 
 from ..maps.queries import check_on_layer
-from .common import kl_normal, log_normal
+from .common import WHOLE_BATCH, kl_normal, log_normal
 from .penalties import env_coll_penalties, veh_coll_penalties
 
 ENV_COLL_THRESH = 0.05  # reference losses/traffic_model.py:17
 VEH_COLL_THRESH = 0.02  # reference losses/traffic_model.py:18
 
 
-def _masked_mean(x, w):
-    return torch.sum(x * w) / torch.clamp(torch.sum(w), min=1.0)
-
-
 def traffic_model_loss(scene, pred, weights, state_norm, att_norm,
-                       map_store=None):
+                       map_store=None, batch=WHOLE_BATCH):
     """Weighted CVAE training loss (reference ``losses/traffic_model.py:34-118``).
 
     :param pred: dict with future_pred (B,NA,FT,4), prior_out, posterior_out,
@@ -41,12 +37,12 @@ def traffic_model_loss(scene, pred, weights, state_norm, att_norm,
     fp = pred["future_pred"]
     w_frame = scene.future_vis * scene.mask[:, :, None].to(torch.float32)
     recon_nll = -log_normal(fp, gt[..., :4], torch.ones_like(fp))
-    recon_loss = _masked_mean(recon_nll, w_frame)
+    recon_loss = batch.weighted_mean(recon_nll, w_frame)
 
     pm, pv = pred["prior_out"]
     qm, qv = pred["posterior_out"]
-    kl_loss = _masked_mean(kl_normal(qm, qv, pm, pv),
-                           scene.mask.to(torch.float32))
+    kl_loss = batch.weighted_mean(kl_normal(qm, qv, pm, pv),
+                                  scene.mask.to(torch.float32))
 
     loss = weights["recon"] * recon_loss + weights["kl"] * kl_loss
     out = {"recon_loss": recon_loss, "kl_loss": kl_loss}
@@ -56,7 +52,7 @@ def traffic_model_loss(scene, pred, weights, state_norm, att_norm,
         lw_unnorm = att_norm.unnormalize(scene.lw)
         pens, _ = veh_coll_penalties(samp, lw_unnorm, scene.mask)
         na = torch.sum(scene.mask, dim=1).to(torch.float32)
-        num_pairs = torch.sum(na * na - na)
+        num_pairs = batch.total(na * na - na)
         coll_veh = torch.sum(pens) / torch.clamp(num_pairs, min=1.0)
         loss = loss + weights["coll_veh_prior"] * coll_veh
         out["coll_veh_prior"] = coll_veh
@@ -70,7 +66,7 @@ def traffic_model_loss(scene, pred, weights, state_norm, att_norm,
                                      scene.map_idx, map_store.packed,
                                      map_store.dx)
         # the reference averages over every (ego, T) entry, zeros included
-        coll_env = torch.mean(pens)
+        coll_env = batch.mean(pens)
         loss = loss + weights["coll_env_prior"] * coll_env
         out["coll_env_prior"] = coll_env
 
@@ -87,7 +83,7 @@ def _ang_deg(gh, ph):
                                                   -1, 1)))
 
 
-def compute_err(scene, pred, state_norm):
+def compute_err(scene, pred, state_norm, batch=WHOLE_BATCH):
     """Interpretable errors (reference ``losses/traffic_model.py:120-164``):
     masked means of pos_err (m), ang_err (deg), and the prior NLL and
     Mahalanobis distance of the posterior mean."""
@@ -104,10 +100,10 @@ def compute_err(scene, pred, state_norm):
                                        dim=-1)
     wa = scene.mask.to(torch.float32)
     return {
-        "pos_err": _masked_mean(pos_err, w),
-        "ang_err": _masked_mean(ang_err, w),
-        "z_logprob": _masked_mean(z_logprob, wa),
-        "z_mdist": _masked_mean(z_mdist, wa),
+        "pos_err": batch.weighted_mean(pos_err, w),
+        "ang_err": batch.weighted_mean(ang_err, w),
+        "z_logprob": batch.weighted_mean(z_logprob, wa),
+        "z_mdist": batch.weighted_mean(z_mdist, wa),
     }
 
 

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..losses.adv import adv_gen_loss, tgt_matching_loss
+from ..losses.common import WHOLE_BATCH
 from ..losses.metrics import check_single_veh_coll
 from .loop import Adam
 
@@ -69,13 +70,14 @@ class AdvObjective:
         before the first).
     :param planner_fn: closed loop: ``fn(future_pred_norm) -> (B, FT, 4)``
     :param future_len: FT of the decodes; the planner future's when None
+    :param batch: the losses' reductions over the batch (``losses.common``)
     """
 
     def __init__(self, model, scene, map_store, embed_info, loss_weights,
                  tgt_prior_distrib, other_prior_distrib, init_other_z,
                  planner_fut, feasibility_time, feasibility_infront_min,
                  attack_agt_mask=None, veh_coll_buffer=0.1, ref_compat=True,
-                 planner_fn=None, future_len=None):
+                 planner_fn=None, future_len=None, batch=WHOLE_BATCH):
         self.model, self.scene, self.map_store = model, scene, map_store
         self.embed_info, self.weights = embed_info, loss_weights
         self.tgt_prior, self.other_prior = tgt_prior_distrib, other_prior_distrib
@@ -87,6 +89,7 @@ class AdvObjective:
         self.attack_agt_mask = attack_agt_mask
         self.veh_coll_buffer, self.ref_compat = veh_coll_buffer, ref_compat
         self.lw_unnorm = model.att_unnorm(scene.lw)
+        self.batch = batch
 
     @property
     def closed_loop(self):
@@ -104,7 +107,7 @@ class AdvObjective:
         return tgt_matching_loss(
             self.unnorm(pred[:, 0]), self.unnorm(self.planner_fut), tgt_z,
             self.tgt_prior, self.weights, agent_mask=self.scene.mask[:, 0],
-            ref_compat=self.ref_compat)["loss"]
+            ref_compat=self.ref_compat, batch=self.batch)["loss"]
 
     def adv_loss_full(self, pred, other_z, tgt_traj=None):
         """:param tgt_traj: (B, FT, 4) attack target; the planner future
@@ -119,7 +122,7 @@ class AdvObjective:
             weights=self.weights, veh_coll_buffer=self.veh_coll_buffer,
             crash_min_t=self.crash_min_t,
             crash_min_infront=self.crash_min_infront,
-            attack_agt_mask=self.attack_agt_mask)
+            attack_agt_mask=self.attack_agt_mask, batch=self.batch)
 
     def value_and_grad(self, tgt_z, other_z, refresh=False):
         """One decode, two autograd pulls (module doc).
@@ -161,7 +164,7 @@ def run_adv_gen_optim(model, cur_z, lr, loss_weights, scene, map_store,
                       feasibility_infront_min, planner_rollout_fn=None,
                       attack_agt_mask=None, future_len=None,
                       veh_coll_buffer=0.1, ref_compat=True,
-                      planner_refresh_every=1):
+                      planner_refresh_every=1, batch=WHOLE_BATCH):
     """
     :param cur_z: (B, NA, D) initial latents (ego at slot 0)
     :param planner_name: 'ego' (open-loop replay) or 'hardcode' (closed
@@ -171,6 +174,8 @@ def run_adv_gen_optim(model, cur_z, lr, loss_weights, scene, map_store,
     :param planner_refresh_every: closed loop: planner re-roll period in
         Adam iterations (1 = reference-exact)
     :param attack_agt_mask: optional (B, NA) fixed-attacker restriction
+    :param batch: the losses' reductions over the batch (``losses.common``;
+        a rank's share under ``parallel.mesh.ShardedBatch``)
     :return: (final z (B,NA,D), final_result_traj (B,NA,FT,4) with the TRUE
         planner at slot 0, min_agt (B,), min_t (B,), loss history
         (num_iters,), internal_pred (B,NA,FT,4) — the model's own final
@@ -188,7 +193,7 @@ def run_adv_gen_optim(model, cur_z, lr, loss_weights, scene, map_store,
                        tgt_prior_distrib, other_prior_distrib, cur_z.detach(),
                        planner_fut, feasibility_time, feasibility_infront_min,
                        attack_agt_mask, veh_coll_buffer, ref_compat,
-                       None if open_loop else planner_rollout_fn, FT)
+                       None if open_loop else planner_rollout_fn, FT, batch)
 
     with frozen_params(model):
         tgt_z, other_z = cur_z[:, 0].detach(), cur_z.detach()
@@ -209,7 +214,7 @@ def run_adv_gen_optim(model, cur_z, lr, loss_weights, scene, map_store,
             final_result = torch.cat([planner_fut[:, None],
                                       final_pred[:, 1:]], 1)
             adv_final = obj.adv_loss_full(final_pred, z_final, planner_fut)
-    losses = torch.stack(losses) if losses else torch.zeros(0)
+    losses = batch.values(torch.stack(losses)) if losses else torch.zeros(0)
     return (z_final, final_result, adv_final["min_agt"], adv_final["min_t"],
             losses, final_pred)
 

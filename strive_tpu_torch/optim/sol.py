@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..losses.adv import avoid_coll_loss, tgt_matching_loss
+from ..losses.common import WHOLE_BATCH
 from ..losses.metrics import check_single_veh_coll
 from ..losses.training import compute_coll_rate_env
 from .adv import _combine_z, frozen_params
@@ -27,13 +28,15 @@ from .loop import Adam
 def run_find_solution_optim(model, cur_z, final_result_traj, future_len, lr,
                             loss_weights, scene, map_store, num_iters,
                             embed_info, tgt_prior_distrib,
-                            other_prior_distrib, ref_compat=True):
+                            other_prior_distrib, ref_compat=True,
+                            batch=WHOLE_BATCH):
     """
     :param cur_z: (B, NA, D) latents from the adversarial optimization
     :param final_result_traj: (B, NA, FT, 4) NORMALIZED adv scenario (slot 0
         = true planner reaction)
     :param future_len: extended rollout length (sol_future_len, default 16)
     :param loss_weights: the ``sol_*``-stripped weight dict
+    :param batch: the losses' reductions over the batch (``losses.common``)
     :return: (final z, sol_result_traj (B, NA, FT, 4) NORMALIZED, losses)
     """
     B, NA, D = cur_z.shape
@@ -59,13 +62,14 @@ def run_find_solution_optim(model, cur_z, final_result_traj, future_len, lr,
             unnorm(pred_ext), z_full, tgt_prior_distrib, lw=lw_unnorm,
             mask=scene.mask, mapixes=scene.map_idx, packed=map_store.packed,
             dx=map_store.dx, init_z=tgt_init_z, weights=loss_weights,
-            veh_coll_buffer=0.5, single_veh_idx=0, z_mask=ego_mask)["loss"]
+            veh_coll_buffer=0.5, single_veh_idx=0, z_mask=ego_mask,
+            batch=batch)["loss"]
 
     def match_loss(pred_ft, other_z):
         return tgt_matching_loss(
             unnorm(pred_ft), other_match_unnorm, other_z, other_prior_distrib,
             loss_weights, frame_weights=other_mask[:, :, None].to(torch.float32),
-            agent_mask=other_mask, ref_compat=ref_compat)["loss"]
+            agent_mask=other_mask, ref_compat=ref_compat, batch=batch)["loss"]
 
     def decode(z, nfuture):
         return model.decode_embedding(z, embed_info, scene, map_store, None,
@@ -104,7 +108,7 @@ def run_find_solution_optim(model, cur_z, final_result_traj, future_len, lr,
             # (reference :120-121)
             sol_result = torch.where(ego_mask[:, :, None, None], dec,
                                      final_result_traj)
-    losses = torch.stack(losses) if losses else torch.zeros(0)
+    losses = batch.values(torch.stack(losses)) if losses else torch.zeros(0)
     return z_final, sol_result, losses
 
 

@@ -30,8 +30,15 @@ success check -> solution optimization -> scenario JSONs in the
 - ``--bf16`` computes the map encoder and the decoder's GNN in bfloat16
   and ``--no_output_bicycle`` has the decoder emit poses directly, as in
   ``scripts/train_traffic.py``'s ``build_model``.
-- Not ported yet, and raising ``NotImplementedError``: ``--mesh_devices >
-  1`` (P11).
+- ``--mesh_devices N`` > 1 splits each batch over N processes, one a
+  device (``parallel/mesh.py``): cards 0 .. N-1 with NCCL (it raises when
+  fewer are visible), or with ``--device cpu`` N CPU processes with gloo.
+  Each batch is padded to a multiple of N with fully masked copies of its
+  first scene, each rank optimizes its rows, and rank 0 screens the
+  candidates and writes the log, stats and files, which are the
+  one-process run's (``run``). strive_tpu's guard on the fused closed
+  loop's memory (``scripts/adv_scenario_gen.py:215-229``) has no
+  counterpart: the port has no fused mode.
 """
 
 from __future__ import annotations
@@ -42,9 +49,11 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.loading import load_environment
 from ..data.scenario_json import prepare_output_dict, save_scenario
+from ..losses.common import WHOLE_BATCH
 from ..losses.metrics import check_single_veh_coll
 from ..normalize import REDUCED_CAT, effective_categories
 from ..optim.adv import compute_adv_gen_success, run_adv_gen_optim
@@ -52,6 +61,9 @@ from ..optim.feasibility import (determine_feasibility,
                                  restrict_attackers_to_category)
 from ..optim.init_optim import run_init_optim
 from ..optim.sol import compute_sol_success, run_find_solution_optim
+from ..parallel.mesh import (ShardedBatch, default_backend, entry_devices,
+                             from_rank0, gather_rows, launch, rank,
+                             rank_device, shard_rows, world)
 from ..planners import PLANNER_CONFIGS, PlannerConfig, RulePlanner
 from ..planners.device_planner import DeviceRulePlanner
 from ..planners.host_bridge import make_planner_host_fn, reset_planner
@@ -125,8 +137,9 @@ def parse_cfg(argv=None):
     parser.add_argument("--max_scenes", type=int, default=None,
                         help="cap on candidate scenes (for smoke runs)")
     parser.add_argument("--mesh_devices", type=int, default=1,
-                        help="shard scene batches over this many devices "
-                             "(not ported yet: P11)")
+                        help="split each scene batch over this many "
+                             "processes, one a device: cards 0..N-1 (NCCL), "
+                             "or N CPU processes with --device cpu (gloo)")
     parser.add_argument("--no_ref_compat", dest="ref_compat",
                         action="store_false", default=True,
                         help="fix the reference TgtMatchingLoss prior-weight "
@@ -135,13 +148,6 @@ def parse_cfg(argv=None):
                         help="'cuda' (default; raises without a card) or "
                              "'cpu'")
     return parser.parse(argv)
-
-
-def check_ported(cfg):
-    """Raise ``NotImplementedError`` on an option the port has not got yet,
-    naming the step of ROADMAP that ports it."""
-    if cfg.mesh_devices > 1:
-        raise NotImplementedError("--mesh_devices > 1: multi-GPU is P11's")
 
 
 def _take_embed(emb, ids):
@@ -172,26 +178,76 @@ def render_views(out_dir, scene_id, store, map_idx, past, lw, mask, colors,
                      mask, car_colors=colors, title=title)
 
 
-def main(argv=None, timings=None, max_batches=None):
+def main(argv=None, timings=None, max_batches=None, init_method=None):
     """Run the pipeline; returns the stats dict.
+
+    ``--mesh_devices N`` > 1 runs it in N processes (``run`` in each, one
+    a device): cards 0 .. N-1 with NCCL, or with ``--device cpu`` N CPU
+    processes with gloo.
 
     :param timings: optional dict, filled with each stage's wall seconds
         (``seconds``) and number of runs (``calls``): 'sample' (one a
         candidate), 'init_fit', 'planner_refit', 'adversarial', 'solution'
         and 'save' (one a batch each); the last loss of each optimization
         (``final_loss``); and ``batches`` [(secs, scenes, adv
-        successes)]. Stages end in a device synchronize.
+        successes)]. Stages end in a device synchronize. Rank 0's, in a
+        run of several processes.
     :param max_batches: stop after this many optimized batches (default:
         screen every candidate)
+    :param init_method: the process group's rendezvous with
+        ``--mesh_devices`` (``launch``'s default: a free
+        ``tcp://localhost`` port)
     """
     cfg = parse_cfg(argv)
-    check_ported(cfg)
     device = resolve_device(cfg.device)
+    if cfg.mesh_devices <= 1:
+        return run(cfg, device, timings, max_batches)
+    devices = entry_devices(cfg.device, cfg.mesh_devices)
+    stats, rank_timings = launch(
+        _run_rank, (argv, timings is not None, max_batches), devices,
+        default_backend(device), init_method)
+    if timings is not None:
+        timings.update(rank_timings)
+    return stats
+
+
+def _run_rank(argv, want_timings, max_batches):
+    """A rank of ``main``'s processes: :return: (stats, timings or None)."""
+    timings = {} if want_timings else None
+    stats = run(parse_cfg(argv), rank_device(), timings, max_batches)
+    return stats, timings
+
+
+def pad_scenes(scene, ranks):
+    """``scene`` padded to a multiple of ``ranks`` scenes with fully masked
+    copies of scene 0 (``scripts/adv_scenario_gen.py:300-313``)."""
+    n, pad = scene.B, (-scene.B) % ranks
+    if not pad:
+        return scene
+    scene = scene.take(list(range(n)) + [0] * pad)
+    scene.mask[n:] = False
+    return scene
+
+
+def run(cfg, device, timings=None, max_batches=None):
+    """The pipeline on ``device`` (``main``'s arguments). Inside a process
+    group (``parallel.mesh``) rank 0 screens the candidates and every rank
+    acts on its verdicts; each batch is padded to a multiple of the ranks
+    and each rank optimizes its rows of it; rank 0 alone logs and writes
+    the scenario files, from the gathered rows. The losses' batch means
+    divide by totals over every rank, and padding rows add to no sum, so
+    the stats, folders and files are the one-process run's."""
     mkdir(cfg.out)
     Logger.init(os.path.join(cfg.out, "adv_gen_log.txt"))
     Logger.log("Args: " + str(vars(cfg)))
+    sec, calls = {}, {}  # each stage's wall seconds and runs
     if timings is not None:
-        timings.update(seconds={}, calls={}, final_loss={}, batches=[])
+        timings.update(seconds=sec, calls=calls, final_loss={}, batches=[])
+    sharded = dist.is_initialized()
+    ranks, lead = world(), rank() == 0
+    if sharded:
+        Logger.log(f"Sharding scene batches over {ranks} ranks "
+                   f"({device.type})")
 
     def record_loss(name, losses):
         if timings is not None and len(losses):
@@ -203,10 +259,16 @@ def main(argv=None, timings=None, max_batches=None):
         yield
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        if timings is not None:
-            sec, calls = timings["seconds"], timings["calls"]
-            sec[name] = sec.get(name, 0.0) + time.perf_counter() - t0
-            calls[name] = calls.get(name, 0) + 1
+        sec[name] = sec.get(name, 0.0) + time.perf_counter() - t0
+        calls[name] = calls.get(name, 0) + 1
+
+    def reductions(rows, n_real):
+        """The batch reductions of this rank's ``rows`` of a batch whose
+        first ``n_real`` rows are real (``losses.common``)."""
+        if not sharded:
+            return WHOLE_BATCH
+        return ShardedBatch(torch.as_tensor([r < n_real for r in rows],
+                                            device=device))
 
     need_lanes = cfg.planner == "hardcode"
     ds, store, lane_graphs, state_norm, att_norm = load_environment(
@@ -278,10 +340,10 @@ def main(argv=None, timings=None, max_batches=None):
     noise_gen = torch.Generator().manual_seed(0)
     noise_shape = (1, cfg.num_samples, ds.na_max, cfg.latent_size)
 
-    for pos, di in enumerate(order):
-        is_last = pos == len(order) - 1
-        scene = ds.get_batch([di])
-        stats["candidates"] += 1
+    def screen(scene):
+        """Sample the candidate's futures and screen them (reference
+        :176-219); :return: the number of candidate attackers, -1 when the
+        ego is below the velocity threshold."""
         with stage("sample"), torch.no_grad():
             samp = model.sample_batched(
                 scene, store, cfg.num_samples, include_mean=True,
@@ -296,24 +358,31 @@ def main(argv=None, timings=None, max_batches=None):
                 ego_s = state_norm.unnormalize(_np(samp["future_pred"][0, :, 0]))
                 vmax = np.linalg.norm(np.diff(ego_s[:, :, :2], axis=1),
                                       axis=-1).max()
-            feas = None
-            if vmax >= cfg.feasibility_vel:
-                feas, _, _ = determine_feasibility(
-                    samp["future_pred"][0], scene.mask[0], state_norm,
-                    cfg.feasibility_thresh, cfg.feasibility_time, 0.0,
-                    feasibility_infront_min=cfg.feasibility_infront_min,
-                    check_non_drivable_separation=cfg.feasibility_check_sep,
-                    drivable=store.drivable(), dx=store.dx,
-                    map_idx=scene.map_idx[0],
-                )
-                if cfg.adv_attack_with is not None:
-                    # restrict candidate attackers to one category
-                    # (reference adv_scenario_gen.py:209-219)
-                    feas = restrict_attackers_to_category(
-                        feas, scene.sem[0], eff_cats, cfg.adv_attack_with,
-                        reduced=cfg.reduce_cats)
-                n_feas = int(feas.sum())
-        if feas is None:
+            if vmax < cfg.feasibility_vel:
+                return -1
+            feas, _, _ = determine_feasibility(
+                samp["future_pred"][0], scene.mask[0], state_norm,
+                cfg.feasibility_thresh, cfg.feasibility_time, 0.0,
+                feasibility_infront_min=cfg.feasibility_infront_min,
+                check_non_drivable_separation=cfg.feasibility_check_sep,
+                drivable=store.drivable(), dx=store.dx,
+                map_idx=scene.map_idx[0],
+            )
+            if cfg.adv_attack_with is not None:
+                # restrict candidate attackers to one category
+                # (reference adv_scenario_gen.py:209-219)
+                feas = restrict_attackers_to_category(
+                    feas, scene.sem[0], eff_cats, cfg.adv_attack_with,
+                    reduced=cfg.reduce_cats)
+            return int(feas.sum())
+
+    for pos, di in enumerate(order):
+        is_last = pos == len(order) - 1
+        scene = ds.get_batch([di])
+        stats["candidates"] += 1
+        # rank 0 screens; every rank acts on its verdict
+        n_feas = from_rank0(screen(scene) if lead else 0, device)
+        if n_feas < 0:
             Logger.log(f"scene {di}: ego below velocity threshold, skip")
             if not (is_last and pending):
                 continue
@@ -335,7 +404,15 @@ def main(argv=None, timings=None, max_batches=None):
         batch_ids = pending
         pending = []
 
-        def stage1_fit(sc):
+        def shard(ids):
+            """The batch of ``ids`` padded to a multiple of the ranks
+            (``pad_scenes``), this rank's rows of it, and their batch
+            reductions."""
+            sc = pad_scenes(ds.get_batch(ids), ranks)
+            rows = shard_rows(sc.B)
+            return sc, sc.take(rows), reductions(rows, len(ids))
+
+        def stage1_fit(sc, red):
             """Embed + fit the recorded scene (reference :283-290)."""
             with stage("init_fit"):
                 with torch.no_grad():
@@ -345,7 +422,7 @@ def main(argv=None, timings=None, max_batches=None):
                 z0, fit, losses = run_init_optim(
                     model, emb["posterior_out"][0], init_traj, sc.future_vis,
                     0.1, init_weights, sc, store, INIT_FIT_ITERS, emb, prior,
-                    ref_compat=cfg.ref_compat)
+                    ref_compat=cfg.ref_compat, batch=red)
                 record_loss("init_fit", losses)
             return emb, prior, z0, init_traj, fit
 
@@ -360,7 +437,7 @@ def main(argv=None, timings=None, max_batches=None):
             return make_planner_host_fn(planner, sc.mask, state_norm, dt,
                                         cfg.future_len)
 
-        def planner_refit(sc, emb, prior, z0, fit):
+        def planner_refit(sc, emb, prior, z0, fit, red):
             """Roll the planner on the fitted scene, make it the ego
             target, and re-fit (reference :292-310)."""
             with stage("planner_refit"):
@@ -370,28 +447,30 @@ def main(argv=None, timings=None, max_batches=None):
                 z0, fit, losses = run_init_optim(
                     model, z0, init_traj, sc.future_vis, cfg.lr, init_weights,
                     sc, store, PLANNER_REFIT_ITERS, emb, prior,
-                    ref_compat=cfg.ref_compat)
+                    ref_compat=cfg.ref_compat, batch=red)
                 record_loss("planner_refit", losses)
             return pfn, init_traj, z0, fit
 
-        scene = ds.get_batch(batch_ids)
-        B = scene.B
-        Logger.log(f"Optimizing batch of {len(batch_ids)} scenes {batch_ids}")
+        scene, local, red = shard(batch_ids)
+        Logger.log(f"Optimizing batch of {len(batch_ids)} scenes "
+                   f"{batch_ids}" + (f" (padded to {scene.B})" if scene.B
+                                     != len(batch_ids) else ""))
         t0 = time.time()
 
-        emb, prior, z_init, init_traj, init_fit = stage1_fit(scene)
+        emb, prior, z_init, init_traj, init_fit = stage1_fit(local, red)
 
         planner_fn = None
         if cfg.planner == "hardcode":
             planner_fn, init_traj, z_init, init_fit = planner_refit(
-                scene, emb, prior, z_init, init_fit)
+                local, emb, prior, z_init, init_fit, red)
             # drop scenes where the planner already collides (reference :312-328)
+            fit_all = gather_rows(init_fit)
             lw_un = att_norm.unnormalize(_np(scene.lw))
             mask_np = _np(scene.mask)
             keep = []
             for b in range(len(batch_ids)):
                 n = int(mask_np[b].sum())
-                fut = state_norm.unnormalize(_np(init_fit[b, :n]))
+                fut = state_norm.unnormalize(_np(fit_all[b, :n]))
                 lw_b = lw_un[b, :n]
                 coll, _ = check_single_veh_coll(fut[0], lw_b[0], fut[1:],
                                                 lw_b[1:])
@@ -403,27 +482,33 @@ def main(argv=None, timings=None, max_batches=None):
                 if not any(keep):
                     continue
                 batch_ids = [bi for bi, k in zip(batch_ids, keep) if k]
-                scene = ds.get_batch(batch_ids)
-                B = scene.B
-                emb, prior, z_init, init_traj, init_fit = stage1_fit(scene)
+                scene, local, red = shard(batch_ids)
+                emb, prior, z_init, init_traj, init_fit = stage1_fit(local,
+                                                                     red)
                 planner_fn, init_traj, z_init, init_fit = planner_refit(
-                    scene, emb, prior, z_init, init_fit)
+                    local, emb, prior, z_init, init_fit, red)
+        B = len(batch_ids)
 
         # record the init scenario (ego = data / planner, reference :358-366)
-        init_future_pred = init_fit.clone()
-        init_future_pred[:, 0] = init_traj[:, 0, :, :4]
+        init_future_pred = gather_rows(init_fit).clone()
+        init_future_pred[:, 0] = gather_rows(init_traj)[:, 0, :, :4]
 
         # adversarial optimization
         with stage("adversarial"):
             tgt_prior = (prior[0][:, 0], prior[1][:, 0])
             z_adv, final_traj, min_agt, min_t, losses, internal_pred = \
                 run_adv_gen_optim(
-                    model, z_init, cfg.lr, loss_weights, scene, store,
+                    model, z_init, cfg.lr, loss_weights, local, store,
                     cfg.num_iters, emb, cfg.planner, tgt_prior, prior,
                     cfg.feasibility_time, cfg.feasibility_infront_min,
                     planner_rollout_fn=planner_fn, ref_compat=cfg.ref_compat,
-                    planner_refresh_every=cfg.planner_refresh_every)
+                    planner_refresh_every=cfg.planner_refresh_every,
+                    batch=red)
             record_loss("adversarial", losses)
+            z_adv, final_traj, min_agt, min_t, internal_pred, emb = \
+                gather_rows((z_adv, final_traj, min_agt, min_t,
+                             internal_pred, emb))
+            prior = emb["prior_out"]
             min_agt, min_t = _np(min_agt), _np(min_t)
             adv_ok = [compute_adv_gen_success(
                 final_traj[b], state_norm, att_norm, scene.lw[b],
@@ -431,25 +516,32 @@ def main(argv=None, timings=None, max_batches=None):
         stats["adv_success"] += sum(adv_ok)
         Logger.log(f"adv successes: {adv_ok}")
 
-        # solution optimization on successful scenes
+        # solution optimization on successful scenes, padded and split
+        # over the ranks as the batch is (scripts/adv_scenario_gen.py:444-465)
         sol_ok = [False] * B
         sol_traj_store = {}
         sol_z_store = {}
         sol_ids = [b for b in range(B) if adv_ok[b]]
         if sol_ids:
             with stage("solution"):
-                sub = scene.take(sol_ids)
-                sub_emb = _take_embed(emb, sol_ids)
+                sub_all = pad_scenes(scene.take(sol_ids), ranks)
+                sel = sol_ids + sol_ids[:1] * (sub_all.B - len(sol_ids))
+                rows = shard_rows(sub_all.B)
+                mine = [sel[r] for r in rows]
+                sub = sub_all.take(rows)
+                sub_emb = _take_embed(emb, mine)
                 sub_prior = sub_emb["prior_out"]
-                sel = torch.as_tensor(sol_ids, device=device)
+                idx = torch.as_tensor(mine, device=device)
                 z_sol, sol_traj, losses = run_find_solution_optim(
-                    model, z_adv[sel], final_traj[sel], cfg.sol_future_len,
+                    model, z_adv[idx], final_traj[idx], cfg.sol_future_len,
                     cfg.lr, sol_weights, sub, store, cfg.num_iters, sub_emb,
-                    sub_prior, sub_prior, ref_compat=cfg.ref_compat)
+                    sub_prior, sub_prior, ref_compat=cfg.ref_compat,
+                    batch=reductions(rows, len(sol_ids)))
                 record_loss("solution", losses)
+                z_sol, sol_traj = gather_rows((z_sol, sol_traj))
                 for k, b in enumerate(sol_ids):
                     sol_ok[b] = compute_sol_success(
-                        sol_traj[k], sub.take([k]), store, state_norm,
+                        sol_traj[k], sub_all.take([k]), store, state_norm,
                         att_norm)
                     sol_traj_store[b] = _np(sol_traj[k])
                     sol_z_store[b] = _np(z_sol[k])
@@ -459,10 +551,10 @@ def main(argv=None, timings=None, max_batches=None):
         batch_times.append((batch_secs, B, int(sum(adv_ok))))
         Logger.log("Optimized batch in %.1f sec" % batch_secs)
 
-        # save + viz per scene
+        # save + viz per scene, from rank 0 alone
         with stage("save"):
             mask_np = _np(scene.mask)
-            for b in range(B):
+            for b in range(B if lead else 0):
                 n = int(mask_np[b].sum())
                 result_dir = ("adv_failed" if not adv_ok[b]
                               else ("adv_sol_success" if sol_ok[b]
@@ -512,6 +604,8 @@ def main(argv=None, timings=None, max_batches=None):
         Logger.log(f"{k} = {v}")
     Logger.log("total time: %.1f sec (%.2f scenarios/hour)" % (
         elapsed, stats["adv_success"] * 3600.0 / max(elapsed, 1e-9)))
+    Logger.log("stage seconds: " + ", ".join(
+        "%s %.1f (%d runs)" % (k, v, calls[k]) for k, v in sec.items()))
     if len(batch_times) > 1:
         # steady-state throughput: drop the first batch (it pays the
         # one-time set-up: cuDNN plans, the allocator's first growth)

@@ -12,7 +12,15 @@ ends), a validation pass every ``--val_every`` epochs that writes
 ``--ckpt`` resumes: weights, optimizer state and epoch.
 
 - ``--device`` defaults to ``cuda`` and raises without a card; the CPU
-  runs only when asked for (``--device cpu``). One device, no mesh.
+  runs only when asked for (``--device cpu``).
+- Training is data-parallel over every visible card, as strive_tpu's is
+  over every device of its mesh: one process a card with NCCL
+  (``parallel/mesh.py``), each stepping on its rows of every batch, the
+  step the one-process step on the whole batch (``train.Trainer``); the
+  batch size must split evenly over the cards, as strive_tpu's sharding
+  requires. ``--mesh_devices N`` takes the first N cards, or with
+  ``--device cpu`` runs N CPU processes with gloo (the default there is
+  one process). Rank 0 alone logs and writes the checkpoints.
 - The initial weights are Flax's distributions from a CPU generator
   seeded 0 (``init_params``); the step noise comes from the trainer's CPU
   generator, seeded 0.
@@ -35,6 +43,8 @@ import torch
 from ..data.dataset import bucketed_batch_iterator as batch_iterator
 from ..data.loading import load_environment
 from ..normalize import effective_categories
+from ..parallel.mesh import (default_backend, entry_devices, launch, rank,
+                             rank_device)
 from ..train import Trainer, compute_kl_weight
 from ..utils.checkpoint import save_state
 from ..utils.config import add_base_args, get_parser
@@ -65,18 +75,45 @@ def parse_cfg(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default; raises without a card) or "
                              "'cpu'")
+    parser.add_argument("--mesh_devices", type=int, default=None,
+                        help="data-parallel over this many processes, one "
+                             "a device (default: every visible card; one "
+                             "process with --device cpu)")
     return parser.parse(argv)
 
 
-def main(argv=None, timings=None):
+def main(argv=None, timings=None, init_method=None):
     """Train; returns the last epoch's train metrics.
 
     :param timings: optional dict, filled with each train step's wall
         seconds (``train_steps``, ended by a device synchronize) and each
-        epoch's ``train`` and ``val`` metric dicts.
+        epoch's ``train`` and ``val`` metric dicts (rank 0's).
+    :param init_method: the process group's rendezvous with several
+        processes (``launch``'s default: a free ``tcp://localhost`` port)
     """
     cfg = parse_cfg(argv)
     device = resolve_device(cfg.device)
+    devices = entry_devices(cfg.device, cfg.mesh_devices)
+    if len(devices) == 1:
+        return train(cfg, torch.device(devices[0]), timings)
+    metrics, rank_timings = launch(
+        _train_rank, (argv, timings is not None), devices,
+        default_backend(device), init_method)
+    if timings is not None:
+        timings.update(rank_timings)
+    return metrics
+
+
+def _train_rank(argv, want_timings):
+    """A rank of ``main``'s processes: :return: (metrics, timings or None)."""
+    timings = {} if want_timings else None
+    return train(parse_cfg(argv), rank_device(), timings), timings
+
+
+def train(cfg, device, timings=None):
+    """Train on ``device`` (``main``'s arguments); inside a process group,
+    this rank's share of every step (``train.Trainer``)."""
+    lead = rank() == 0
     mkdir(cfg.out)
     Logger.init(os.path.join(cfg.out, "train_log.txt"))
     Logger.log("Args: " + str(vars(cfg)))
@@ -84,7 +121,7 @@ def main(argv=None, timings=None):
         timings.update(train_steps=[], train=[], val=[])
 
     wandb_run = None
-    if cfg.wandb_project is not None:
+    if cfg.wandb_project is not None and lead:
         try:
             import wandb
 
@@ -124,6 +161,8 @@ def main(argv=None, timings=None):
                    f"(val loss {min_eval_loss:.4f})")
 
     def save(name, epoch):
+        if not lead:
+            return
         save_state(ckpts, name, model.state_dict(), trainer.opt.state_dict(),
                    epoch, min_eval_loss)
 

@@ -1,4 +1,4 @@
-"""Training loop: the train and eval steps of the traffic model, one device.
+"""Training loop: the train and eval steps of the traffic model.
 
 Port of ``strive_tpu/train.py`` (reference ``train_traffic.py:64-171``):
 a step is the forward pass (posterior decode, and with either collision
@@ -9,6 +9,17 @@ annealing changes nothing else. The noise of each step (posterior ``eps``
 and prior ``eps_samp``) is drawn on the CPU from the trainer's generator
 and moved, so the card and the CPU see the same numbers; tests pass
 strive_tpu's noise through :meth:`Trainer.draw_noise`.
+
+Inside a process group (``parallel.mesh.launch``) the steps are
+data-parallel, as strive_tpu's are over its ``scenes`` mesh: each rank
+steps on its contiguous rows of the batch (a batch that does not split
+evenly raises, as strive_tpu's ``device_put`` does) with its rows of the
+batch's noise, the losses divide by totals over every rank
+(``ShardedBatch``), and the gradients and metrics are summed over the
+ranks. The losses are means over the whole batch, so a mean of the ranks'
+own means would be another loss wherever their rows hold different numbers
+of agents or frames; this way a step is the one-process step on the same
+batch, and every rank takes the same Adam step.
 
 ``run_epoch`` skips a batch whose step raises a ``RuntimeError``, as the
 reference does (``train_traffic.py:120-131``), with two exceptions: an
@@ -23,9 +34,12 @@ from __future__ import annotations
 import time
 
 import torch
+import torch.distributed as dist
 
+from .losses.common import WHOLE_BATCH
 from .losses.training import compute_err, traffic_model_loss
 from .optim.loop import Adam, AdamW
+from .parallel.mesh import ShardedBatch, shard_rows, sum_tensors
 from .utils.launch import is_device_fault
 from .utils.logger import Logger
 
@@ -64,36 +78,60 @@ class Trainer:
         return eps, eps_samp
 
     def _loss(self, scene, map_store, kl_weight, eps, eps_samp):
+        """:return: (loss, metrics, batch): this rank's share of each inside
+        a process group (module doc)"""
+        batch = WHOLE_BATCH
+        if dist.is_initialized():
+            rows = shard_rows(scene.B)
+            scene, eps = scene.take(rows), eps[rows]
+            eps_samp = None if eps_samp is None else eps_samp[rows]
+            batch = ShardedBatch()
         dev = scene.past.device
         pred = self.model(
             scene, map_store, eps=eps.to(dev), future_sample=self.do_sample,
             eps_samp=None if eps_samp is None else eps_samp.to(dev))
         w = dict(self.loss_weights, kl=kl_weight)
         out = traffic_model_loss(scene, pred, w, self.state_norm,
-                                 self.att_norm, map_store)
+                                 self.att_norm, map_store, batch)
         with torch.no_grad():
-            err = compute_err(scene, pred, self.state_norm)
-        return out["loss"], {**out, **err}
+            err = compute_err(scene, pred, self.state_norm, batch)
+        return out["loss"], {**out, **err}, batch
+
+    @staticmethod
+    def _whole(metrics, batch):
+        """The batch's metrics (detached 0-dim tensors) from this rank's
+        shares."""
+        keys = sorted(metrics)
+        vals = batch.values(torch.stack([metrics[k].detach() for k in keys]))
+        return dict(zip(keys, vals.unbind()))
+
+    def gradients(self, scene, map_store, kl_weight, eps, eps_samp=None):
+        """:return: (the batch loss's gradient for each parameter, summed
+        over the ranks inside a process group; the step's metrics,
+        detached 0-dim tensors)"""
+        with torch.enable_grad():
+            loss, metrics, batch = self._loss(scene, map_store, kl_weight,
+                                              eps, eps_samp)
+            grads = torch.autograd.grad(loss, self.params)
+        return sum_tensors(grads), self._whole(metrics, batch)
 
     def train_step(self, scene, map_store, kl_weight, eps, eps_samp=None):
         """One update of the parameters; :return: the step's metrics
         (detached 0-dim tensors)."""
-        with torch.enable_grad():
-            loss, metrics = self._loss(scene, map_store, kl_weight, eps,
-                                       eps_samp)
-            grads = torch.autograd.grad(loss, self.params)
+        grads, metrics = self.gradients(scene, map_store, kl_weight, eps,
+                                        eps_samp)
         new = self.opt.step([p.detach() for p in self.params], grads)
         with torch.no_grad():
             for p, q in zip(self.params, new):
                 p.copy_(q)
         self.step_count += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     def eval_step(self, scene, map_store, kl_weight, eps, eps_samp=None):
         with torch.no_grad():
-            _, metrics = self._loss(scene, map_store, kl_weight, eps,
-                                    eps_samp)
-        return metrics
+            _, metrics, batch = self._loss(scene, map_store, kl_weight, eps,
+                                           eps_samp)
+        return self._whole(metrics, batch)
 
     def run_epoch(self, batches, map_store, kl_weight, train=True,
                   log_every=0, wandb_run=None, step_counter=0,

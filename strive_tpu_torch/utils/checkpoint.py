@@ -9,7 +9,10 @@ unchanged. The directory holds one file, ``torch_state.pt``: ``{params,
 opt_state, meta: {epoch, min_val_loss}}`` (reference ``utils/torch.py:20-60``),
 ``params`` the model's state dict and ``opt_state`` the optimizer's, on
 the CPU. A directory without that file (strive_tpu's orbax store) is not
-read: the port has no orbax.
+read: the port has no orbax. ``convert_orbax_ckpt.py`` at the repo's root
+turns such a store into this format where JAX and orbax are installed;
+strive_tpu's trained prior is committed so converted, at
+``out/train_synth_prod_torch/checkpoints/latest_model``.
 """
 
 from __future__ import annotations
@@ -64,7 +67,9 @@ def load_state(path):
             raise ValueError(
                 f"{path} holds no {STATE_FILE} (an orbax checkpoint of "
                 "strive_tpu?); the port reads what its own train_traffic "
-                "writes")
+                "writes. Convert an orbax store with `python "
+                "convert_orbax_ckpt.py --orbax <store> --out <dir>` where "
+                "JAX and orbax are installed")
         raise FileNotFoundError(f"no checkpoint at {path}")
     state = torch.load(state_file, map_location="cpu", weights_only=True)
     meta = state["meta"]

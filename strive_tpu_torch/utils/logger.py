@@ -1,6 +1,7 @@
 """Simple stdout + file logger.
 
-Copy of ``strive_tpu/utils/logger.py`` (reference ``utils/logger.py:7-33``).
+Copy of ``strive_tpu/utils/logger.py`` (reference ``utils/logger.py:7-33``),
+plus ``silent``.
 """
 
 from __future__ import annotations
@@ -11,9 +12,12 @@ import os
 
 class Logger:
     log_file = None
+    silent = False  # set on the ranks other than 0 of a multi-process run
 
     @staticmethod
     def init(log_path):
+        if Logger.silent:
+            return
         os.makedirs(os.path.dirname(log_path) or ".", exist_ok=True)
         Logger.log_file = log_path
         with open(log_path, "w") as f:
@@ -21,6 +25,8 @@ class Logger:
 
     @staticmethod
     def log(msg):
+        if Logger.silent:
+            return
         msg = str(msg)
         print(msg, flush=True)
         if Logger.log_file is not None:

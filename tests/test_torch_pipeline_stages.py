@@ -590,17 +590,25 @@ def test_config_reader_raises_outside_the_subset(tmp_path, line):
 @pytest.mark.parametrize("extra,want", [
     (["--data_version", "trainval"], FileNotFoundError),
     (["--viz"], "viz_results"),
-    (["--mesh_devices", "2"], NotImplementedError),
+    (["--mesh_devices", "2"], "scenario_results"),
     (["--data_version", "mini"], FileNotFoundError),
 ], ids=["trainval-no-etl-FileNotFoundError", "viz-renders",
-        "mesh_devices-NotImplementedError", "mini-no-etl-FileNotFoundError"])
+        "mesh_devices-runs", "mini-no-etl-FileNotFoundError"])
 def test_entry_point_raises_on_options_not_ported(tmp_path, extra, want):
-    """Multi-GPU still raises; real nuScenes without its ETL
-    directory raises strive_tpu's FileNotFoundError; --viz renders every
-    saved scene before and after the adversarial optimization."""
+    """Real nuScenes without its ETL directory raises strive_tpu's
+    FileNotFoundError; --viz renders every saved scene before and after
+    the adversarial optimization; --mesh_devices 2 runs the pipeline in
+    two gloo processes on the CPU and writes its scenes (held against the
+    one-process run in tests/test_torch_distributed.py)."""
     argv = ["-c", os.path.join(REPO, "configs/adv_gen_synthetic.cfg"),
             "--out", str(tmp_path), "--device", "cpu",
             "--data_dir", str(tmp_path / "no_etl")] + extra
+    if want == "scenario_results":
+        stats = tgen.main(argv + ["--num_iters", "1", "--max_scenes", "2"],
+                          init_method=f"file://{tmp_path}/pg")
+        jsons = glob.glob(str(tmp_path / want / "*" / "*.json"))
+        assert stats["feasible"] == len(jsons) == 2
+        return
     if want != "viz_results":
         with pytest.raises(want):
             tgen.main(argv)
