@@ -15,7 +15,8 @@ evaluation through their entry points, as ``scripts/refine_traffic_optim.py``,
 ``train_traffic.py`` and ``test_traffic.py`` run them, at their configs'
 widths (phases 10 and 11); and the model's options, bf16 compute among
 them, on the main path and in training (phase 13); and multi-process
-runs through ``parallel/mesh.py`` on the one card (phase 14). Phases:
+runs through ``parallel/mesh.py`` on the one card (phase 14); and the
+port's bench harnesses and its yield and refresh studies (phase 15). Phases:
 
 1. the card's name and power limit (nvidia-smi); fails without CUDA;
 2. builds the CUDA kernels from ``strive_tpu_torch/csrc`` (nvcc, parallel);
@@ -239,10 +240,14 @@ runs through ``parallel/mesh.py`` on the one card (phase 14). Phases:
    columns, starts off the 16-byte grid or past the array, indices outside
    [0, R), odd widths, both source dtypes; for K5c the rows of
    ``kernel_cases.sums_cases``: every start residue, sums that wrap past
-   2^31 both ways, each load path, outputs in wide and in narrow blocks):
-   bit-exact. Each timed at the scripts' shape beside the launch
-   floor (``torch.cuda._sleep(0)``), and at the path's shape beside its
-   plain version, one library call and its bound. Then the 19 variants
+   2^31 both ways, each load path, outputs in wide and in narrow blocks;
+   for K5d the rows of ``kernel_cases.onehot_cases``: one channel a
+   block, groups that do not divide C, tails of 1-3 points, 70,000 tiles,
+   idx off its 16 bytes, a w[t] past 48 KB of shared memory, explicit
+   groups): bit-exact. Each timed at the scripts' shape beside the launch
+   floor (``torch.cuda._sleep(0)``) and one library call, and at the
+   path's shape beside its plain version, one library call and its bound
+   (K5d also beside its write floor, ``out.fill_(1)``). Then the 19 variants
    (``probes.mosaic_bisect.run``) with the K5 counters set to 0: every
    variant correct, and the counters equal to the launches worked out from
    ``REPS`` and each variant's kernel;
@@ -263,7 +268,21 @@ runs through ``parallel/mesh.py`` on the one card (phase 14). Phases:
    c. K1 and K2 at a rank's launch shapes of the production config's B=4
       over 4 ranks (``kernel_cases.shard_args``: 16 poses, 576 cars; over
       2 they are the main path's), held and timed as in 10a;
-15. prints the probes' and the variants' JSON lines, the ``closed_loop``
+15. (run after 8) the port's harnesses and studies, as a user runs them:
+   a. ``scripts.bench`` (bench.py's workload) at 5 iterations a run, in
+      this process: one JSON line with bench.py's keys, and K1 and K2
+      launched exactly 1 + 6 x 12 x 6 and 6 x 6 times (the embedding, a
+      warm-up run and 5 timed runs of 5 iterations and a final decode);
+   b. ``scripts.bench_closed_loop`` in its device-planner mode
+      (``STRIVE_BENCH_MODES=fused``) at k = 1 and 2, 5 iterations a run:
+      its line, and exact K1 and K2 launches (4 runs);
+   c. ``scripts.study_yield`` (points closed and open loop at 20
+      iterations) and ``scripts.study_refresh_quality`` (``--ks 1 2
+      --skip_perf``) side by side in two processes, both on 9c's trained
+      prior and config at ``--max_scenes 4``: their JSONs written with
+      their keys, adv <= feasible <= candidates at each point, each k's
+      scenes no more than the feasible ones, and k = 1 0 m from itself;
+16. prints the probes' and the variants' JSON lines, the ``closed_loop``
    JSON line (B, NA, FT, iters; it/s, planner ms per call and share for
    each backend; the device planner's kernels per call; the parity
    numbers of a; the card), the ``pipeline`` JSON line (phase 9: per-stage
@@ -272,7 +291,8 @@ runs through ``parallel/mesh.py`` on the one card (phase 14). Phases:
    cuts in ``reduced``, the card), the ``refine`` and ``training`` JSON
    lines (phases 10 and 11), the ``nuscenes`` JSON line (phase 12), the
    ``options`` JSON line (phase 13), the ``multi_gpu`` JSON line (phase
-   14), the ``kernels`` JSON line (K1's ``library_ms`` the library
+   14), the ``studies`` JSON line (phase 15), the ``kernels`` JSON line
+   (K1's ``library_ms`` the library
    yardstick at the main path's shape, ``library`` its other timings and
    differences), the main
    path's it/s
@@ -883,6 +903,19 @@ def bisect_phase(torch, rates, card):
         e["max_abs_err"] = max(e["max_abs_err"], float(diff.abs().amax()))
         e["cases"] += 1
         del got, want, diff
+    # K5d's launch edges (kernel_cases.onehot_cases)
+    for case in kc.onehot_cases().values():
+        w, idx = kc.onehot_args(case, dev)
+        got = bk.onehot_rows(w, idx)
+        want = bk.onehot_rows_plain(w, idx)
+        torch.cuda.synchronize()
+        launched["onehot_rows"] += 1
+        if not torch.equal(got, want):
+            raise AssertionError(f"onehot_rows differs from plain at "
+                                 f"{tuple(w.shape)}, P {idx.shape[1]}: "
+                                 f"{int((got != want).sum())} values")
+        entries["onehot_rows"]["cases"] += 1
+        del got, want
     floor = cuda_ms(lambda: torch.cuda._sleep(0), 200)
     for name, e in entries.items():
         kern = getattr(bk, name)
@@ -896,6 +929,8 @@ def bisect_phase(torch, rates, card):
         e["script_shape"] = BISECT_SCRIPT_SHAPE[name]
         e["script_ms"] = cuda_ms(lambda: kern(*a), 200)
         e["script_bound_ms"] = bound(a)[0]
+        e["script_library_ms"] = cuda_ms(
+            bisect_library_call(torch, bk, name, a), 200)
         e["launch_floor_ms"] = floor
         a = path_args[name]
         e["ms"] = cuda_ms(lambda: kern(*a), 50)
@@ -904,12 +939,23 @@ def bisect_phase(torch, rates, card):
         e["library_ms"] = cuda_ms(bisect_library_call(torch, bk, name, a), 5)
         e["library_call"] = BISECT_LIBRARY[name]
         e["bound_ms"], e["bound_by"] = bound(a)
+        if name == "onehot_rows":  # its 1.61 GB output written alone
+            out = torch.empty((a[0].shape[0], a[0].shape[2], a[1].shape[1]),
+                              device=dev)
+            e["write_floor_ms"] = cuda_ms(lambda: out.fill_(1), 50)
+            e["script_launch"] = bk.onehot_launch(
+                *script_args[name][0].shape, script_args[name][1].shape[1],
+                bk._sm_count(dev))
+            e["path_launch"] = bk.onehot_launch(*a[0].shape, a[1].shape[1],
+                                                bk._sm_count(dev))
+            del out
         log(f"{name} bit-exact on {e['cases']} cases; path shape "
             f"{e['ms']:.4f} ms (plain {e['plain_ms']:.4f} ms, library "
             f"{e['library_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms by "
             f"{e['bound_by']}); script shape ({e['script_shape']}) "
-            f"{e['script_ms']:.4f} ms (bound {e['script_bound_ms']:.5f} ms), "
-            f"launch floor {floor:.4f} ms")
+            f"{e['script_ms']:.4f} ms (bound {e['script_bound_ms']:.5f} ms, "
+            f"library {e['script_library_ms']:.4f} ms), launch floor "
+            f"{floor:.4f} ms")
         torch.cuda.empty_cache()
     delta = {k: bk.LAUNCHES[k] - before[k] for k in bk.LAUNCHES}
     if delta != launched:
@@ -941,14 +987,12 @@ def bisect_phase(torch, rates, card):
     return entries, line
 
 
-CL_DT = 0.5  # the scenes' step (s): the planner's observation spacing
 # iterations of the run with each planner call fenced by synchronize (the
 # closed loop's ms a call and share): fewer than ITERS, for the time limit
 CL_FENCED_ITERS = 5
 # 6b's timed closed-loop runs, a backend: half the main path's ITERS, so
 # that the script, with 9c's full-length pipeline, keeps inside its limit
 CL_ITERS = 10
-CL_MAPS = ("map0", "map1")  # the store's maps, by map_idx
 SMALL_KW = dict(map_bounds=(-4.0, -8.0, 12.0, 8.0), conv_kernels=(5, 3, 3),
                 conv_strides=(2, 2, 2), conv_filters=(8, 8, 16), FT=3)
 
@@ -981,37 +1025,6 @@ def run_optim(run_adv_gen_optim, model, scene, store, emb, iters, **kw):
         model, prior[0], 0.05, WEIGHTS, scene, store, iters, emb,
         "hardcode" if kw else "ego", (prior[0][:, 0], prior[1][:, 0]), prior,
         2, None, **kw)
-
-
-def device_planner(torch, sc, lg, device):
-    """The device planner on ``device``, reset on scene batch ``sc``."""
-    from strive_tpu_torch.normalize import (att_normalizer_for,
-                                            state_normalizer_for)
-    from strive_tpu_torch.planners import PLANNER_CONFIGS
-    from strive_tpu_torch.planners.device_planner import DeviceRulePlanner
-
-    cats = ("car", "truck")
-    planner = DeviceRulePlanner({m: lg for m in CL_MAPS}, CL_MAPS,
-                                PLANNER_CONFIGS["default"], device=device)
-    planner.reset(state_normalizer_for(cats).unnormalize(
-        sc.past_gt[:, :, -1]).to(device),
-        att_normalizer_for(cats).unnormalize(sc.lw).to(device),
-        sc.mask.to(device), sc.map_idx.to(device))
-    return planner
-
-
-def host_planner_fn(sc, lg, state_norm, att_norm):
-    """The numpy planner's closed-loop function on scene batch ``sc``."""
-    from strive_tpu_torch.planners import PLANNER_CONFIGS, RulePlanner
-    from strive_tpu_torch.planners.host_bridge import (make_planner_host_fn,
-                                                       reset_planner)
-
-    planner = RulePlanner({m: lg for m in CL_MAPS}, CL_MAPS,
-                          PLANNER_CONFIGS["default"])
-    reset_planner(planner, state_norm.unnormalize(sc.past_gt[:, :, -1]),
-                  att_norm.unnormalize(sc.lw), sc.mask, sc.map_idx)
-    return make_planner_host_fn(planner, sc.mask, state_norm, CL_DT,
-                                sc.future_gt.shape[2])
 
 
 def compare_futures(np, state_norm, got, want, tol_m, tol_rad, label):
@@ -1064,15 +1077,19 @@ def closed_loop_phase(torch, np, tm, model, scene, store, norm, counters):
 
     :return: the ``closed_loop`` JSON line's dict (card excluded), the
         launch counts of a full-width closed-loop run"""
-    from strive_tpu_torch.maps.lanegraph import synthetic_lanegraph
     from strive_tpu_torch.normalize import (att_normalizer_for,
                                             state_normalizer_for)
     from strive_tpu_torch.optim.adv import run_adv_gen_optim
     from strive_tpu_torch.scene import SceneBatch
+    from strive_tpu_torch.scripts import bench_closed_loop as bcl
 
     cats = ("car", "truck")
     sn, an = state_normalizer_for(cats), att_normalizer_for(cats)
-    lg = synthetic_lanegraph(extent_m=STORE_PX / 4.0, spacing_m=64.0)
+    lg = bcl.lanegraph(extent_m=STORE_PX / 4.0)
+    names = store.map_names
+
+    def device_planner(sc, lg, device):
+        return bcl.device_planner(sc, lg, names, sn, an, device)
     out = {"B": B, "NA": NA, "FT": FT, "iters": CL_ITERS,
            "lanegraph": f"synthetic_lanegraph(extent_m={STORE_PX / 4.0}, "
                         "spacing_m=64.0) on both maps",
@@ -1080,13 +1097,13 @@ def closed_loop_phase(torch, np, tm, model, scene, store, norm, counters):
 
     # --- a. the scenes' own futures through the planners -----------------
     t0 = time.time()
-    card = device_planner(torch, scene, lg, "cuda")
+    card = device_planner(scene, lg, "cuda")
     log(f"closed loop: device planner tables built in {time.time() - t0:.1f} s")
     scene_cpu = SceneBatch(**{k: None if v is None else v.cpu()
                               for k, v in vars(scene).items()})
-    cpu = device_planner(torch, scene_cpu, lg, "cpu")
-    host_fn = host_planner_fn(scene, lg, sn, an)
-    card_fn, cpu_fn = (p.make_fn(sn, CL_DT, FT) for p in (card, cpu))
+    cpu = device_planner(scene_cpu, lg, "cpu")
+    host_fn = bcl.host_planner_fn(scene, lg, names, sn, an)
+    card_fn, cpu_fn = (p.make_fn(sn, bcl.DT, FT) for p in (card, cpu))
     fut = scene.future_gt[..., :4]
     on_card = card_fn(fut)
     if on_card.device.type != "cuda":
@@ -1101,11 +1118,11 @@ def closed_loop_phase(torch, np, tm, model, scene, store, norm, counters):
         f"{out['card_vs_host']}, card vs CPU {out['card_vs_cpu']}")
 
     # --- b. a small closed loop, card against CPU -------------------------
-    small_lg = synthetic_lanegraph(extent_m=64.0, spacing_m=16.0)
+    small_lg = bcl.lanegraph(extent_m=64.0, spacing_m=16.0)
     runs = []
     for d in ("cpu", "cuda"):
         m, st, sc, emb = small_setup(torch, tm, norm, d)
-        fn = device_planner(torch, sc, small_lg, d).make_fn(sn, CL_DT, 3)
+        fn = device_planner(sc, small_lg, d).make_fn(sn, bcl.DT, 3)
         res = run_optim(run_adv_gen_optim, m, sc, st, emb, 3,
                         planner_rollout_fn=fn)
         runs.append([t.cpu() for t in (res[0], res[4], res[1][:, 0])])
@@ -2885,6 +2902,162 @@ def options_phase(torch, np, tm, norm, rates, card, counters, kernels,
 
 
 
+# phase 15: the harnesses' and studies' sizes (the studies on 9c's prior)
+STUDY_ITERS, STUDY_SCENES = 20, 4
+STUDY_POINTS = (f"closed_it{STUDY_ITERS}:--num_iters {STUDY_ITERS}",
+                f"open_it{STUDY_ITERS}:--planner ego --num_iters "
+                f"{STUDY_ITERS}")
+HARNESS_ITERS = 5
+STUDY_KEYS = {"candidates", "feasible", "adv_success", "sol_success",
+              "pipeline_sec", "yield_pct", "wall_sec"}
+
+
+def harness_lines(fn, env):
+    """Run harness ``fn`` (a ``main``) in this process with ``env`` set;
+    :return: its stdout lines"""
+    import contextlib
+    import io
+
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            if fn(["--device", "cuda"]) != 0:
+                raise AssertionError(f"{fn.__module__} failed")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    return buf.getvalue().splitlines()
+
+
+def studies_phase(torch, card, counters):
+    """Phase 15: the port's bench harnesses and studies (module doc).
+
+    :return: the ``studies`` JSON line"""
+    import re
+    import shutil
+
+    from strive_tpu_torch.scripts import bench, bench_closed_loop
+
+    line = {"studies": "bench, bench_closed_loop, study_yield, "
+                       "study_refresh_quality", "card": card,
+            "seconds": {}}
+    # --- a. bench at HARNESS_ITERS iterations, its launches counted ------
+    t0 = time.perf_counter()
+    zero(counters)
+    out = harness_lines(bench.main, {"STRIVE_BENCH_ITERS": str(HARNESS_ITERS)})
+    launches = counted(counters)
+    runs = 6  # a warm-up and 5 timed
+    expected = {k: 0 for k in launches}
+    expected.update({"map_crop": 1 + runs * FT * (HARNESS_ITERS + 1),
+                     "footprint_coll_point": runs * (HARNESS_ITERS + 1)})
+    if len(out) != 1 or launches != expected:
+        raise AssertionError(f"15a. bench printed {out}, launches "
+                             f"{launches}, expected {expected}")
+    res = json.loads(out[0])
+    if res["metric"] != "adv_latent_optim_iters_per_sec" \
+            or not res["value"] > 0:
+        raise AssertionError(f"15a. bench: {res}")
+    line["bench"] = {**res, "iters": HARNESS_ITERS, "launches": launches}
+    line["seconds"]["a"] = time.perf_counter() - t0
+    log(f"15a. bench, {HARNESS_ITERS} iterations: {res}")
+
+    # --- b. the closed-loop bench, device planner, k = 1 and 2 -----------
+    t0 = time.perf_counter()
+    line["closed_loop_bench"] = {}
+    for k in (1, 2):
+        zero(counters)
+        out = harness_lines(bench_closed_loop.main, {
+            "STRIVE_BENCH_ITERS": str(HARNESS_ITERS),
+            "STRIVE_BENCH_MODES": "fused", "STRIVE_BENCH_REFRESH": str(k)})
+        launches = counted(counters)
+        expected = {k2: 0 for k2 in launches}
+        expected.update({"map_crop": 1 + 4 * FT * (HARNESS_ITERS + 1),
+                         "footprint_coll_point": 4 * (HARNESS_ITERS + 1)})
+        m = re.match(r"device: \d+ closed-loop iters in [\d.]+s \(([\d.]+) "
+                     r"it/s", out[0]) if len(out) == 1 else None
+        if m is None or launches != expected:
+            raise AssertionError(f"15b. closed-loop bench k={k} printed "
+                                 f"{out}, launches {launches}, expected "
+                                 f"{expected}")
+        line["closed_loop_bench"][f"k{k}"] = {"iters_per_sec":
+                                              float(m.group(1)),
+                                              "line": out[0],
+                                              "launches": launches}
+        log(f"15b. {out[0]} (k = {k})")
+    line["seconds"]["b"] = time.perf_counter() - t0
+
+    # --- c. the studies on the trained prior, side by side -----------------
+    t0 = time.perf_counter()
+    base = os.path.join(ROOT, "build", "chip_smoke", "studies")
+    yield_out, refresh_out = (os.path.join(base, d)
+                              for d in ("yield", "refresh"))
+    for d in (yield_out, refresh_out):
+        if os.path.isdir(d):
+            shutil.rmtree(d)
+    ckpt = os.path.join(ROOT, PIPE_CKPT)
+    cfg = os.path.join(ROOT, PIPE_CFG)
+    cmds = {
+        "yield": [sys.executable, "-m", "strive_tpu_torch.scripts.study_yield",
+                  "--cfg", cfg, "--out", yield_out, "--max_scenes",
+                  str(STUDY_SCENES), "--ckpt", ckpt, "--points",
+                  *STUDY_POINTS],
+        "refresh": [sys.executable, "-m",
+                    "strive_tpu_torch.scripts.study_refresh_quality", "--cfg",
+                    cfg, "--out", refresh_out, "--ks", "1", "2",
+                    "--skip_perf", "--ckpt", ckpt, "--extra", "--max_scenes",
+                    str(STUDY_SCENES), "--num_iters", str(STUDY_ITERS)]}
+    procs = {k: subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+             for k, c in cmds.items()}
+    outs = {}
+    try:
+        for k, proc in procs.items():
+            outs[k], _ = proc.communicate(timeout=600)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for k, proc in procs.items():
+        if proc.returncode != 0:
+            raise AssertionError(f"15c. study_{k} exited {proc.returncode}:"
+                                 f"\n{outs[k][-3000:]}")
+    with open(os.path.join(yield_out, "yield_study.json")) as fh:
+        ys = json.load(fh)
+    names = [p.split(":")[0] for p in STUDY_POINTS]
+    if list(ys) != names:
+        raise AssertionError(f"15c. yield study points {list(ys)}")
+    for name, s in ys.items():
+        if not STUDY_KEYS <= set(s) or s["candidates"] != STUDY_SCENES or not (
+                0 <= s["adv_success"] <= s["feasible"] <= s["candidates"]
+                and s["sol_success"] <= s["adv_success"]):
+            raise AssertionError(f"15c. yield study {name}: {s}")
+    with open(os.path.join(refresh_out, "refresh_study.json")) as fh:
+        rs = json.load(fh)
+    if set(rs["taxonomy"]) != {"1", "2"} or "perf" in rs:
+        raise AssertionError(f"15c. refresh study: {rs}")
+    feasible = ys[names[0]]["feasible"]
+    for k, tax in rs["taxonomy"].items():
+        if set(tax) != set(FOLDERS) or not sum(tax.values()) <= feasible \
+                or tax["adv_sol_success"] + tax["sol_failed"] > feasible:
+            raise AssertionError(f"15c. refresh study k={k}: {tax}, "
+                                 f"feasible {feasible}")
+    div = rs.get("divergence_m", {})
+    if sum(rs["taxonomy"]["1"].values()) and div.get("1", {}).get(
+            "max") != 0.0:
+        raise AssertionError(f"15c. k = 1 diverges from itself: {div}")
+    line["yield"], line["refresh"] = ys, rs
+    line["seconds"]["c"] = time.perf_counter() - t0
+    line["seconds"]["phase"] = sum(line["seconds"].values())
+    log(f"15c. yield study {ys}; refresh study {rs}")
+    return line
+
+
 def main():
     # one card: the first of those visible, numbered as nvidia-smi numbers it
     os.environ.setdefault("CUDA_DEVICE_ORDER", "PCI_BUS_ID")
@@ -3151,6 +3324,9 @@ def main():
     # --- 8. K5a-K5d and the Mosaic-bisect probes ---------------------------
     bisect_entries, bisect = bisect_phase(torch, rates, card)
     kernels.update(bisect_entries)
+
+    # --- 15. the harnesses and the studies --------------------------------
+    studies = studies_phase(torch, card, counters)
     print(json.dumps(probes))
     print(json.dumps(bisect))
     print(json.dumps({"closed_loop": {**closed_loop, "card": card}}))
@@ -3160,6 +3336,7 @@ def main():
     print(json.dumps(nusc))
     print(json.dumps(options))
     print(json.dumps(multi_gpu))
+    print(json.dumps(studies))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"main_path": "embed + open-loop adv optimization",
                       "B": B, "NA": NA, "FT": FT, "crop_px": MAP_PX,

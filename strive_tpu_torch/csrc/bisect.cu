@@ -66,11 +66,22 @@
 //   under the launch floor; what the card must do is 2048 x 64 rows x 12
 //   vectors = 25.2 MB of L2 reads at the path's shape, whose windows start
 //   on 16-byte columns, after one L2 round trip for the window starts.
-// K5d: one block per (t, band of 256 points). The block stages w[t] (64x192
-//   bf16 = 24 KB) in shared memory, rows padded to an odd number of 32-bit
-//   words so that 32 different rows fall in 32 different banks; each thread
-//   reads its index once, then writes out[t, c, p] for every c, coalesced
-//   along p. The output, 2048 x 192 x 1024 f32 = 1.61 GB, bounds it: ~0.48 ms.
+// K5d: a 3-D grid of blocks (t, band of kOnehotThreads x 4 points, group of
+//   cg channels). A block stages only its group's columns of w[t] (R x cg
+//   bf16) in shared memory, rows padded to an odd number of 32-bit words so
+//   that 32 different rows fall in 32 different banks, while each thread
+//   loads the indices of its 4 consecutive points (one 16-byte load); then
+//   it writes out[t, c, p..p+3] for each c of the group as one 16-byte
+//   store, coalesced along p. That vector path needs P % 4 == 0 and 16-byte
+//   aligned idx and out; otherwise the same split stores one float at a
+//   time and masks the tail at P. The wrapper picks cg so that the grid
+//   covers the card's SMs: at the bisect scripts' shape (T = 1, P = 1024,
+//   C = 192: one band) a group is one channel, 192 blocks, where the first
+//   design launched 4 blocks of 256 points, each staging all 24 KB of w[t]
+//   and storing 4 bytes a channel. Its output there is 786 KB (~0.24 us),
+//   so the launch floor bounds it. At the gather-probe path's shape (2048
+//   tiles) a group is all 192 channels, one block a tile, and the output,
+//   2048 x 192 x 1024 f32 = 1.61 GB, bounds it: ~0.48 ms.
 //   The TPU computed this as w^T @ onehot(idx) on the MXU only because that
 //   Mosaic build could not gather; here it is a gather. The two differ only
 //   for non-finite w (0 * Inf = NaN in the product) and in the sign of a zero.
@@ -83,6 +94,10 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBandRows = 16;
 constexpr int kDefaultSharedBytes = 48 * 1024;
+
+// K5d: threads a block; each takes 4 consecutive points (one int4 of
+// indices, one float4 a channel)
+constexpr int kOnehotThreads = 256;
 
 // K5c's launch shapes: threads a block, pieces a thread loads before it sums
 // them; one wide block an output while G <= the SM count
@@ -317,28 +332,59 @@ window_sums_kernel(const T* __restrict__ src, int R, int C,
 
 // out[t, c, p] = float(w[t, idx[t, p], c]) if 0 <= idx < R, else 0. w is bf16
 // (as raw 16-bit words); a bf16 widens to f32 exactly by a 16-bit shift.
-__global__ void __launch_bounds__(kThreads)
+// Block (t, band, group): channels [group * cg, + cg) of points
+// [band * kOnehotThreads * 4, + kOnehotThreads * 4). VEC: P % 4 == 0 and
+// idx, out 16-byte aligned, so every thread's 4 points are whole vectors.
+template <bool VEC>
+__global__ void __launch_bounds__(kOnehotThreads)
 onehot_rows_kernel(const uint16_t* __restrict__ w, const int* __restrict__ idx,
-                   int R, int C, int P, int pitch, float* __restrict__ out) {
+                   int R, int C, int P, int cg, int pitch,
+                   float* __restrict__ out) {
   extern __shared__ __align__(16) uint16_t wt[];
   const long long t = blockIdx.x;
-  const uint16_t* src = w + t * R * C;
-  for (int i = threadIdx.x; i < R * C; i += blockDim.x) {
-    const int r = i / C;
-    wt[r * pitch + (i - r * C)] = __ldg(src + i);
+  const int c0 = blockIdx.z * cg, cn = min(cg, C - c0);
+  // the indices first, so that their load is in flight while the columns
+  // stage (a staging thread waits on each of its loads to store it)
+  const long long p0 =
+      ((long long)blockIdx.y * kOnehotThreads + threadIdx.x) * 4;
+  int j[4] = {-1, -1, -1, -1};
+  const int* ip = idx + t * P + p0;
+  if (VEC && p0 < P) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(ip));
+    j[0] = v.x, j[1] = v.y, j[2] = v.z, j[3] = v.w;
+  } else if (!VEC) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (p0 + k < P) j[k] = __ldg(ip + k);
+  }
+  const uint16_t* src = w + t * R * C + c0;
+  for (int i = threadIdx.x; i < R * cn; i += kOnehotThreads) {
+    const int r = i / cn, c = i - r * cn;
+    wt[r * pitch + c] = __ldg(src + (long long)r * C + c);
   }
   __syncthreads();
-  const int p = blockIdx.y * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  const int j = __ldg(idx + t * P + p);
-  float* o = out + t * C * P + p;
-  if (j < 0 || j >= R) {
-    for (int c = 0; c < C; ++c) o[(long long)c * P] = 0.0f;
-    return;
+  if (p0 >= P) return;
+  int row[4];  // each point's staged row, or -1 outside [0, R)
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    row[k] = static_cast<unsigned>(j[k]) < static_cast<unsigned>(R)
+                 ? j[k] * pitch : -1;
+  float* o = out + (t * C + c0) * P + p0;
+  for (int c = 0; c < cn; ++c, o += P) {
+    float v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      v[k] = row[k] < 0 ? 0.0f
+                        : __uint_as_float(
+                              static_cast<unsigned>(wt[row[k] + c]) << 16);
+    if (VEC) {
+      *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (p0 + k < P) o[k] = v[k];
+    }
   }
-  const uint16_t* row = wt + j * pitch;
-  for (int c = 0; c < C; ++c)
-    o[(long long)c * P] = __uint_as_float(static_cast<unsigned>(row[c]) << 16);
 }
 
 template <typename T>
@@ -480,21 +526,29 @@ int strive_window_sums(const void* src, int src_type, int R, int C,
 }
 
 // w: (T, R, C) bf16 as 16-bit words; idx: (T, P) int32; out: (T, C, P)
-// float32. pitch: the shared-memory row pitch in bf16 elements (>= C).
+// float32. cg: channels a block; pitch: the shared-memory row pitch in bf16
+// elements (>= cg). Both are chosen, and the grid and the shared memory
+// checked, by probes/bisect_kernels.py onehot_launch; a grid past the
+// card's limits fails here as a launch error.
 int strive_onehot_rows(const uint16_t* w, const int* idx, int T, int R, int C,
-                       int P, int pitch, float* out, void* stream) {
+                       int P, int cg, int pitch, float* out, void* stream) {
   if (T == 0 || P == 0 || C == 0) return (int)cudaSuccess;
-  if (pitch < C) return (int)cudaErrorInvalidValue;
+  if (cg < 1 || pitch < cg) return (int)cudaErrorInvalidValue;
+  const long long bands = (P + 4LL * kOnehotThreads - 1) /
+                          (4LL * kOnehotThreads);
   const int smem = R * pitch * (int)sizeof(uint16_t);
+  const bool vec = P % 4 == 0 && ((reinterpret_cast<uintptr_t>(idx) |
+                                   reinterpret_cast<uintptr_t>(out)) &
+                                  15) == 0;
+  auto kernel = vec ? onehot_rows_kernel<true> : onehot_rows_kernel<false>;
   if (smem > kDefaultSharedBytes) {
     const cudaError_t err = cudaFuncSetAttribute(
-        onehot_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid(T, (P + kThreads - 1) / kThreads);
-  onehot_rows_kernel<<<grid, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(w, idx, R, C, P,
-                                                            pitch, out);
+  const dim3 grid(T, (unsigned)bands, (C + cg - 1) / cg);
+  kernel<<<grid, kOnehotThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      w, idx, R, C, P, cg, pitch, out);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
 """The inputs that hold K1 ``map_crop``, K2 ``footprint_coll_point``, K4b
-``window_take`` and K5c ``window_sums`` to their plain versions, shared by
+``window_take``, K5c ``window_sums`` and K5d ``onehot_rows`` to their plain
+versions, shared by
 ``chip_smoke.py``, ``tools/kernel_variants.py`` and the tests: the main
 path's K2 inputs, K1 and K2 at the shapes the scenario-generation pipeline
 gives them (prior sampling, the solution loss) and the refine and training
@@ -7,8 +8,9 @@ paths give them (a decode step of B scenes, the refine loss, the training
 loss's ego prior), K1 and K2 on a store of nuScenes' four map extents
 (:func:`nusc_store`, :func:`nusc_pose_cases`: per-map ``dx`` that is not
 0.25, maps of unequal size zero-padded to the largest, Singapore
-flipped), the three kernels' edge cases, and the check of K2's contract
-(:func:`coll_point_error`)."""
+flipped), the kernels' edge cases, the check of K2's contract
+(:func:`coll_point_error`), and K5d's blocks modelled in numpy
+(:func:`onehot_blocks`)."""
 
 from __future__ import annotations
 
@@ -654,3 +656,83 @@ def bisect_path_args(device):
             "window_sums": (flat, r[:, None].contiguous(),
                             c[:, None].contiguous(), one, WR, WC),
             "onehot_rows": (w, ly.reshape(-1, ly.shape[-1]).contiguous())}
+
+
+def onehot_cases(seed=0):
+    """K5d's edge cases, ``{name: {"w": (T, R, C) float32 of bf16 values,
+    "idx": (T, P) int32, "offset": int32 elements before idx in its
+    buffer}}``: the bisect scripts' shape (one channel a block), groups
+    that do not divide C (7 of 192 channels a block on 132 SMs at
+    T5_P1000, 3 of 50 at C50_P4099), a tail of 1-3 points (P % 4 != 0,
+    one float a store), more than 65,535 tiles on grid x, idx off its 16
+    bytes, a w[t] past 48 KB of shared memory; indices -1, 0, R - 1, R and
+    int32's extremes."""
+    rng = np.random.default_rng(seed)
+
+    def case(T, R, C, P, offset=0):
+        w = rng.standard_normal((T, R, C)).astype(np.float32)
+        idx = rng.integers(-3, R + 3, (T, P)).astype(np.int32)
+        edge = np.array([-1, 0, R - 1, R, -2 ** 31, 2 ** 31 - 1], np.int32)
+        idx[:, :min(P, 6)] = edge[:min(P, 6)]
+        return {"w": w, "idx": idx, "offset": offset}
+
+    return {"scripts_T1": case(1, 64, 192, 1024),
+            "T5_P1000": case(5, 64, 192, 1000),
+            "C50_P4099": case(2, 64, 50, 4099),
+            "P1_C1": case(3, 1, 1, 1),
+            "T70000_P6": case(70000, 3, 5, 6),
+            "T70000_P8": case(70000, 2, 3, 8),
+            "idx_off16": case(3, 64, 24, 1024, offset=1),
+            "R20000": case(1, 20000, 4, 8)}
+
+
+def onehot_args(case, device):
+    """``onehot_rows``' arguments (w bf16, idx) for one ``onehot_cases``
+    entry, idx ``offset`` int32 elements into its buffer."""
+    w = torch.from_numpy(case["w"]).to(device).to(torch.bfloat16)
+    T, P = case["idx"].shape
+    buf = torch.empty(case["offset"] + T * P, dtype=torch.int32,
+                      device=device)
+    idx = buf[case["offset"]:].view(T, P)
+    idx.copy_(torch.from_numpy(case["idx"]))
+    return w, idx
+
+
+def onehot_blocks(w, idx, launch, vec):
+    """K5d as its blocks split the work (csrc/bisect.cu
+    ``onehot_rows_kernel``), in numpy: block (t, band, group) stages
+    channels [group * cg, + cg) of w[t], each of its ONEHOT_THREADS threads
+    takes ONEHOT_POINTS consecutive points of the band (all whole where
+    ``vec``; else those below P) and writes them for each staged channel.
+
+    :param w: (T, R, C) float32; idx: (T, P) int32
+    :param launch: :func:`probes.bisect_kernels.onehot_launch`'s result
+    :return: out (T, C, P) float32 (NaN where no thread wrote), and the
+        number of writes of each output element
+    """
+    from .probes import bisect_kernels as bk
+
+    T, R, C = w.shape
+    P = idx.shape[1]
+    out = np.full((T, C, P), np.nan, np.float32)
+    writes = np.zeros((T, C, P), np.int32)
+    cg, (_, bands, groups) = launch["cg"], launch["grid"]
+    lanes = np.arange(bk.ONEHOT_POINTS)
+    for z in range(groups):
+        c0 = z * cg
+        staged = w[:, :, c0:c0 + min(cg, C - c0)]  # (T, R, cn)
+        for y in range(bands):
+            p0 = (y * bk.ONEHOT_THREADS + np.arange(bk.ONEHOT_THREADS)) \
+                * bk.ONEHOT_POINTS
+            p0 = p0[p0 < P]  # the threads past P return
+            p = (p0[:, None] + lanes).reshape(-1)
+            if vec and (p >= P).any():
+                raise AssertionError("a 16-byte quad crosses P")
+            p = p[p < P]
+            j = idx[:, p].astype(np.int64)  # (T, n)
+            ok = (j >= 0) & (j < R)
+            rows = staged[np.arange(T)[:, None], np.clip(j, 0, R - 1)]
+            vals = np.where(ok[..., None], rows, np.float32(0))  # (T, n, cn)
+            out[:, c0:c0 + staged.shape[2], p] = vals.transpose(0, 2, 1)
+            writes[:, c0:c0 + staged.shape[2], p] += 1
+    return out, writes

@@ -25,6 +25,8 @@ version. Window starts are taken as ``lax.dynamic_slice`` takes them
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..utils import launch
@@ -47,8 +49,8 @@ _LIB = launch.Library(SOURCE, {
     # src, src_type, R, C, row0, col0, sign, G, K, WR, WC, out, stream
     "strive_window_sums": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P,
                            _P],
-    # w, idx, T, R, C, P, pitch, out, stream
-    "strive_onehot_rows": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
+    # w, idx, T, R, C, P, cg, pitch, out, stream
+    "strive_onehot_rows": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
 })
 # dtype codes of the CUDA source
 _CODE = {torch.uint8: 0, torch.int32: 1, torch.float32: 2}
@@ -229,11 +231,60 @@ def sums(src, row0, col0, sign, WR, WC):
 
 # --- K5d: one-hot row gather ----------------------------------------------
 
+# K5d's launch: threads a block (csrc/bisect.cu kOnehotThreads), each taking
+# ONEHOT_POINTS consecutive points; the most blocks along grid y and z; the
+# shared memory a block gets without opting in
+ONEHOT_THREADS = 256
+ONEHOT_POINTS = 4
+_GRID_YZ = 65535
+_DEFAULT_SMEM_BYTES = 48 * 1024
+
+
 def _smem_pitch(C):
     """Shared-memory row pitch in bf16 elements: >= C, an odd number of
     32-bit words (so 32 different rows fall in 32 different banks)."""
     pitch = C + C % 2
     return pitch + 2 if pitch // 2 % 2 == 0 else pitch
+
+
+def onehot_launch(T, R, C, P, sms, cg=None):
+    """K5d's launch for (T, R, C) ``w`` and (T, P) ``idx`` on a card of
+    ``sms`` SMs: ``cg`` channels a block, unless given as few as keep every
+    SM busy (one channel a block at the bisect scripts' T = 1, P = 1024,
+    C = 192; every channel at the gather-probe path's 2048 tiles), within
+    48 KB of shared memory and 65,535 groups; ``grid`` = (T, bands of
+    ONEHOT_THREADS x ONEHOT_POINTS points, channel groups), as
+    ``strive_onehot_rows`` launches it; ``pitch`` and ``smem``, the staged
+    columns' row pitch (bf16 elements, passed to the kernel) and bytes.
+
+    :param cg: a group of 1 to C channels (the launch-shape sweep and the
+        CPU model of the blocks set it)
+    :raise ValueError: where ``cg`` or the grid or the shared memory is out
+        of range
+    """
+    bands = -(-P // (ONEHOT_THREADS * ONEHOT_POINTS))
+    if cg is None:
+        cg = min(C, max(1, C * T * bands // sms))
+        if R:  # the pitch is at most cg + 3
+            cg = min(cg, max(1, _DEFAULT_SMEM_BYTES // (2 * R) - 3))
+        cg = max(cg, -(-C // _GRID_YZ))
+    if not 1 <= cg <= C:
+        raise ValueError(f"onehot_rows: a grid of {cg} of {C} channels a "
+                         "block")
+    pitch = _smem_pitch(cg)
+    shape = {"cg": cg, "grid": (T, bands, -(-C // cg)), "pitch": pitch,
+             "smem": R * pitch * 2}
+    if max(shape["grid"][1:]) > _GRID_YZ:
+        raise ValueError(f"onehot_rows: grid {shape['grid']} past "
+                         f"{_GRID_YZ} blocks along y or z")
+    if shape["smem"] > _SMEM_BYTES:
+        raise ValueError(f"w[t]'s {R} rows exceed a block's shared memory")
+    return shape
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def onehot_rows(w, idx):
@@ -252,17 +303,21 @@ def onehot_rows(w, idx):
     (T, R, C), P = w.shape, idx.shape[1]
     if idx.shape[0] != T:
         raise ValueError("idx must have one row per w[t]")
-    pitch = _smem_pitch(C)
-    if R * pitch * 2 > _SMEM_BYTES:
-        raise ValueError(f"w[t] of {R}x{C} exceeds a block's shared memory")
-    if (P + 255) // 256 > 65535:
-        raise ValueError("onehot_rows takes at most 65535 * 256 points")
     _fits_int32(T * R * C, T * C * P)
-    out = torch.empty((T, C, P), dtype=torch.float32, device=device)
     if T * C * P == 0:
-        return out
+        return torch.empty((T, C, P), dtype=torch.float32, device=device)
+    return _onehot_rows_at(w, idx, onehot_launch(T, R, C, P,
+                                                 _sm_count(device)))
+
+
+def _onehot_rows_at(w, idx, shape):
+    """K5d launched at ``shape`` (:func:`onehot_launch`'s result) on checked
+    tensors; ``tools/kernel_variants.py`` sweeps its groups through this."""
+    (T, R, C), P = w.shape, idx.shape[1]
+    out = torch.empty((T, C, P), dtype=torch.float32, device=idx.device)
     _LIB.launch("strive_onehot_rows", w.data_ptr(), idx.data_ptr(), T, R, C,
-                P, pitch, out.data_ptr(), launch.stream(device))
+                P, shape["cg"], shape["pitch"], out.data_ptr(),
+                launch.stream(idx.device))
     LAUNCHES["onehot_rows"] += 1
     return out
 

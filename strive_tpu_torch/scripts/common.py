@@ -2,6 +2,9 @@
 
 from __future__ import annotations
 
+import os
+import subprocess
+
 import torch
 
 from ..maps.store import num_channels
@@ -36,6 +39,33 @@ def resolve_device(name):
         raise RuntimeError("--device cuda, but torch.cuda.is_available() is "
                            "false; pass --device cpu to run on the CPU")
     return dev
+
+
+def sync(device):
+    """Wait for ``device``'s queued work (nothing to wait for on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def card_name(device):
+    """What ran: "cpu", or the card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit`` gives them (the name alone without
+    nvidia-smi)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible:
+        index = visible.split(",")[index]
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired):
+        out = ""
+    return out or torch.cuda.get_device_name(dev)
 
 
 def init_params(model):

@@ -8,6 +8,9 @@ the port's counterpart exactly, dtype too. Each K5 plain version is also held
 against a jnp oracle on random inputs: ``lax.dynamic_slice`` + ``astype``
 (K5b), ``jnp.sum(..., dtype=int32)`` on windows that overflow (K5c), the
 Pallas body's bf16 one-hot ``dot_general`` (K5d), and ``x * f`` (K5a).
+K5d's launch (channel groups, 4 points a thread, the grid) is held in plain
+Python: :func:`kernel_cases.onehot_blocks` splits the work as the kernel's
+blocks do, and must write every output once with the plain version's value.
 """
 
 import importlib.util
@@ -180,6 +183,79 @@ def test_onehot_rows_matches_onehot_dot_general():
     got = bk.onehot(torch.from_numpy(w).to(torch.bfloat16), i32(idx))
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(n(got), want)
+
+
+# --- K5d's launch -------------------------------------------------------------
+
+@pytest.mark.parametrize("sms", [132, 7])
+@pytest.mark.parametrize("name", list(kc.onehot_cases()))
+def test_onehot_blocks_write_the_plain_version_once(name, sms):
+    """Every edge case of ``kernel_cases.onehot_cases`` split as K5d's
+    blocks split it on a card of ``sms`` SMs: each output written once,
+    equal to the plain version."""
+    case = kc.onehot_cases()[name]
+    w, idx = kc.onehot_args(case, "cpu")
+    (T, R, C), P = w.shape, idx.shape[1]
+    launch = bk.onehot_launch(T, R, C, P, sms)
+    # the kernel's 16-byte path: P % 4 == 0, idx (and out) on 16 bytes
+    vec = P % 4 == 0 and idx.data_ptr() % 16 == 0
+    got, writes = kc.onehot_blocks(w.float().numpy(), idx.numpy(), launch,
+                                   vec)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(got, n(bk.onehot_rows_plain(w, idx)))
+
+
+@pytest.mark.parametrize("cg", [1, 5, 64, 191, 192])
+def test_onehot_blocks_at_a_given_group(cg):
+    """Groups set by hand, as ``tools/kernel_variants.py`` sweeps them: one
+    that does not divide C, one channel short of C, all of C; a tail of 3
+    points."""
+    case = kc.onehot_cases()["T5_P1000"]
+    w, idx = kc.onehot_args(case, "cpu")
+    w, idx = w[:2], idx[:2, :103]
+    launch = bk.onehot_launch(2, 64, 192, 103, 132, cg)
+    assert launch["grid"] == (2, 1, -(-192 // cg))
+    got, writes = kc.onehot_blocks(w.float().numpy(), idx.numpy(), launch,
+                                   False)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(got, n(bk.onehot_rows_plain(w, idx)))
+
+
+def test_onehot_launch_fills_the_card():
+    """One channel a block at the bisect scripts' shape (192 blocks on 132
+    SMs), every channel at the gather-probe path's 2048 tiles; groups that
+    do not divide C; T on grid x past 65,535."""
+    assert bk.onehot_launch(1, 64, 192, 1024, 132) == {
+        "cg": 1, "grid": (1, 1, 192), "pitch": 2, "smem": 256}
+    assert bk.onehot_launch(2048, 64, 192, 1024, 132) == {
+        "cg": 192, "grid": (2048, 1, 1), "pitch": 194, "smem": 64 * 194 * 2}
+    assert bk.onehot_launch(5, 64, 192, 1000, 132)["grid"] == (5, 1, 28)
+    assert bk.onehot_launch(2, 64, 50, 4099, 132)["grid"] == (2, 5, 17)
+    assert bk.onehot_launch(70000, 3, 5, 6, 132)["grid"] == (70000, 1, 1)
+    # a w[t] past 48 KB: one channel a block, shared memory opted into
+    assert bk.onehot_launch(1, 20000, 4, 8, 132)["smem"] == 80000
+    for T, R, C, P in ((1, 64, 192, 1024), (9, 64, 192, 5000),
+                       (2048, 64, 192, 1024), (3, 200, 700, 77)):
+        got = bk.onehot_launch(T, R, C, P, 132)
+        blocks = got["grid"][0] * got["grid"][1] * got["grid"][2]
+        assert blocks >= min(132, T * got["grid"][1] * C)
+        assert got["smem"] <= 48 * 1024
+
+
+def test_onehot_launch_refuses_what_the_grid_cannot_hold():
+    with pytest.raises(ValueError, match="grid"):
+        bk.onehot_launch(1, 64, 192, 65536 * 1024, 132)
+    with pytest.raises(ValueError, match="shared memory"):
+        bk.onehot_launch(1, 60000, 4, 8, 132)
+    for cg in (0, 193):
+        with pytest.raises(ValueError, match="channels a block"):
+            bk.onehot_launch(1, 64, 192, 8, 132, cg)
+
+
+def test_onehot_smem_pitch_is_an_odd_number_of_words():
+    assert [bk._smem_pitch(c) for c in (1, 2, 3, 4, 7, 192)] == [
+        2, 2, 6, 6, 10, 194]
+    assert all(bk._smem_pitch(c) // 2 % 2 == 1 for c in range(1, 300))
 
 
 # --- dispatch ---------------------------------------------------------------

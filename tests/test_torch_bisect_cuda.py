@@ -162,6 +162,20 @@ def test_onehot_rows_match_plain_at_the_path_shape(dev):
     _same("onehot_rows", (w, idx))
 
 
+@pytest.mark.parametrize("name", list(kc.onehot_cases()))
+def test_onehot_rows_match_plain_at_edges(dev, name):
+    """``kernel_cases.onehot_cases``: one channel a block, groups that do
+    not divide C, tails of 1-3 points, 70,000 tiles on grid x, idx off its
+    16 bytes, a w[t] past 48 KB of shared memory."""
+    case = kc.onehot_cases()[name]
+    w, idx = kc.onehot_args(case, dev)
+    got = bk.onehot_rows(w, idx)
+    want = bk.onehot_rows_plain(w, idx)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want), int((got != want).sum())
+
+
 @pytest.mark.parametrize("name", ["scale_rows", "window_convert",
                                   "window_sums", "onehot_rows"])
 def test_wrappers_refuse_a_cpu_operand(dev, name):

@@ -1,5 +1,6 @@
 """The launch-shape sweep of ``tools/kernel_variants.py``, on the CPU: each
-variant's copy of ``crop.cu`` (K1, K2), ``window.cu`` or ``bisect.cu``
+variant's copy of ``crop.cu`` (K1, K2), ``window.cu`` or ``bisect.cu`` (K5c,
+K5d)
 differs from the port's source in the constants it names and nowhere else,
 so a change to the kernels that the sweep's edits no longer match fails
 here, not on the card.
@@ -20,6 +21,7 @@ CHANGED = {
     "take": ("constexpr int kTake", "__stcs(p, v);", "return __ldcs(p);"),
     "sums": ("constexpr int kSum", "const uint4 u = ok ? __ldg(",
              "if constexpr (WIDE) {"),
+    "onehot": ("constexpr int kOnehotThreads", kv.ONEHOT_STORE),
 }
 
 
@@ -36,6 +38,8 @@ def test_port_variants_are_the_sources():
     assert len(SOURCES["k2"]) == len(kv.K2_SHAPES) + 1
     assert len(SOURCES["take"]) == len(kv.TAKE_SHAPES) + 1
     assert len(SOURCES["sums"]) == len(kv.SUMS_SHAPES) + 3
+    assert SOURCES["onehot"]["port"] == SOURCES["sums"]["port"]
+    assert len(SOURCES["onehot"]) == len(kv.ONEHOT_SHAPES) + 1
     assert set(SOURCES) == set(kv.KERNELS) == set(kv.SOURCES) == set(CHANGED)
 
 
@@ -54,6 +58,8 @@ def test_variant_changes_its_constants_alone(kernel, label):
     if kernel == "k1" and label != "threads256_cols1_rows4_steps2":
         assert diff
     if kernel == "sums" and label != "threads64x16_wide512x2":
+        assert diff
+    if kernel == "onehot":
         assert diff
 
 

@@ -1,11 +1,11 @@
 """Launch-shape variants of K1 ``map_crop``, K2 ``footprint_coll_point``,
-K4b ``window_take`` and K5c ``window_sums``, timed on the card beside the
-port's kernels and an earlier checkout's.
+K4b ``window_take``, K5c ``window_sums`` and K5d ``onehot_rows``, timed on
+the card beside the port's kernels and an earlier checkout's.
 
-    python -m tools.kernel_variants [--parent DIR] [--kernels k1 k2 take sums]
+    python -m tools.kernel_variants [--parent DIR] [--kernels k1 k2 take sums onehot]
 
 Each variant is a copy of ``strive_tpu_torch/csrc/crop.cu`` (K1, K2),
-``window.cu`` (K4b) or ``bisect.cu`` (K5c) with some of the kernel's
+``window.cu`` (K4b) or ``bisect.cu`` (K5c, K5d) with some of the kernel's
 constants replaced (:func:`variant_sources`; every replaced text must occur
 once in the source): for K1 the threads a block, the column units a
 thread takes in a row, the rows a thread takes and the residual steps of
@@ -18,7 +18,9 @@ flat layout, for K5c the threads per block and the pieces a thread loads
 before it sums them, of the block used while the outputs outnumber the
 SMs and of the wide block used while they do not, and the way each
 reads its windows' starts (staged in shared memory or read by every
-thread).
+thread), for K5d the threads a block and evict-first stores; K5d's
+channels a block (``cg``) are an argument of its entry point, so its
+groups are varied through the port's own build (``port_cg<n>``).
 The copies are built under ``build/variants/`` with the port's nvcc
 flags and ``-Xptxas -v`` (K1's registers and spills go into the result),
 one nvcc each, all in parallel, and so are the same sources
@@ -34,16 +36,24 @@ windows, whose 8 MB stay in L2, and probe 3's 32 int32 windows of 576^2
 and 640^2, which fill 85% and 105% of the L2), K5c at the gather-probe
 path's shape (2048 windows of 64x192 on a (2048, 1024) uint8 raster) and
 at the four Mosaic-bisect variants' (bit for bit against their ``want``
-too). Then ``ROUNDS`` rounds of device times (``utils.timing.cuda_ms``
-through the wrappers): the parent first and last, the others in order and
-then in reverse between. K1's write floor is ``out.fill_(1)`` into an
+too), K5d at the bisect scripts' shape (T = 1, P = 1024, C = 192) and the
+gather-probe path's (2048 tiles) and on ``kernel_cases.onehot_cases``
+(an earlier checkout's K5d, the first design, took the shared-memory
+pitch of all of w[t]'s columns where it now takes ``cg`` and the pitch of
+its group, and is called so). Then ``ROUNDS``
+rounds of device times (``utils.timing.cuda_ms`` through the wrappers):
+the parent first and last, the others in order and then in reverse
+between. K1's write floor is ``out.fill_(1)`` into an
 output of its shape and dtype: its bytes without the gathers. K4b's
 streaming floor is ``out.copy_(idx)`` into an output of its dtype: the
 index bytes read and the output bytes written, without the gathers.
 K5c's floors are the launch (``torch.cuda._sleep(0)``) and a pass of as
 many 16-byte loads as K5c makes over its L2-resident raster
-(``L2_READ_CU``), from a full card of blocks at the path's shape and from
-G blocks at the scripts'.
+(``FLOORS_CU``), from a full card of blocks at the path's shape and from
+G blocks at the scripts'. K5d's floors are the launch, an empty kernel
+launched on the port's grid, block and shared memory (``FLOORS_CU``), and,
+at the path's shape, its write floor, ``out.fill_(1)`` into an output of
+its shape.
 Prints one JSON line with the card's name and power limit and every
 time; needs a card.
 """
@@ -103,15 +113,25 @@ SUMS_SHAPES = ((64, 16, 64, 16, False), (512, 2, 512, 2, False),
 # the Mosaic-bisect variants that run K5c, timed at their own shapes
 SUMS_VARIANTS = (mb.v_prefetch_indexmap, mb.v_same_array_two_specs,
                  mb.v_prefetch_indexmap_u8, mb.v_dma_dyn_in_fori)
-KERNELS = ("k1", "k2", "take", "sums")
-SOURCES = {"k1": "crop", "k2": "crop", "take": "window", "sums": "bisect"}
+# K5d: (threads a block, evict-first stores); the port's is (256, off)
+ONEHOT_SHAPES = ((64, False), (128, False), (512, False), (256, True))
+# channels a block through the port's build; the port's own choice is
+# bisect_kernels.onehot_launch's (1 at the scripts' shape, 192 at the path's)
+ONEHOT_GROUPS = (1, 8, 32, 192)
+ONEHOT_STORE = ("*reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], "
+                "v[2], v[3]);")
+KERNELS = ("k1", "k2", "take", "sums", "onehot")
+SOURCES = {"k1": "crop", "k2": "crop", "take": "window", "sums": "bisect",
+           "onehot": "bisect"}
 REPS_K1 = 100
 
-# The L2 read floor: n 16-byte loads over the vectors [0, mask] of src (a
+# The floors. L2 read: n 16-byte loads over the vectors [0, mask] of src (a
 # power of two of them, resident in L2), four in flight a thread, with no
 # start to fetch, no masks and no reduction; a thread stores only if its
-# sum hits a value, so no load is dropped and nothing is written.
-L2_READ_CU = r"""
+# sum hits a value, so no load is dropped and nothing is written. Empty
+# grid: a kernel that does nothing, launched with a given grid, block and
+# dynamic shared memory (what a launch of that shape costs alone).
+FLOORS_CU = r"""
 #include <cuda_runtime.h>
 
 __global__ void __launch_bounds__(256)
@@ -132,6 +152,8 @@ l2_read_kernel(const uint4* __restrict__ src, unsigned mask, long long n,
   if (acc == 0x9e3779b9u) out[blockIdx.x] = acc;
 }
 
+__global__ void empty_grid_kernel() {}
+
 extern "C" {
 const char* strive_cuda_error(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -143,12 +165,21 @@ int strive_l2_read(const void* src, unsigned mask, long long n, int blocks,
       static_cast<const uint4*>(src), mask, n, out);
   return (int)cudaGetLastError();
 }
+
+int strive_empty_grid(int gx, int gy, int gz, int threads, int smem,
+                      void* stream) {
+  empty_grid_kernel<<<dim3(gx, gy, gz), threads, smem,
+                      static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
 }
 """
-L2_READ = launch.Library("l2_read", {
+FLOORS = launch.Library("floors", {
     # src, mask, n, blocks, out, stream
     "strive_l2_read": [launch.PTR, ctypes.c_uint, ctypes.c_longlong,
-                       launch.INT, launch.PTR, launch.PTR]})
+                       launch.INT, launch.PTR, launch.PTR],
+    # grid x, y, z, threads, dynamic shared bytes, stream
+    "strive_empty_grid": [launch.INT] * 5 + [launch.PTR]})
 
 
 def _k1_edits(threads, cols, rows, steps):
@@ -202,6 +233,15 @@ def _sums_edits(threads, vecs, wide_threads, wide_vecs, cg):
     return edits
 
 
+def _onehot_edits(threads, stcs):
+    edits = {"constexpr int kOnehotThreads = 256;":
+             f"constexpr int kOnehotThreads = {threads};"}
+    if stcs:
+        edits[ONEHOT_STORE] = ("__stcs(reinterpret_cast<float4*>(o), "
+                               "make_float4(v[0], v[1], v[2], v[3]));")
+    return edits
+
+
 def patched(text, edits):
     """``text`` with each key of ``edits`` replaced by its value; raise
     unless every key occurs exactly once."""
@@ -213,9 +253,9 @@ def patched(text, edits):
 
 
 def variant_sources(csrc=build.CSRC):
-    """{kernel ("k1", "k2", "take" or "sums"): {label: (source name, CUDA
-    text)}}: the port's sources as they are ("port") and every shape's
-    copy."""
+    """{kernel ("k1", "k2", "take", "sums" or "onehot"): {label: (source
+    name, CUDA text)}}: the port's sources as they are ("port") and every
+    shape's copy."""
     crop = (Path(csrc) / "crop.cu").read_text()
     k1 = {"port": ("crop", crop)}
     for t, c, r, q in K1_SHAPES:
@@ -240,7 +280,11 @@ def variant_sources(csrc=build.CSRC):
     for how, flag in (("direct", "true"), ("staged", "false")):
         sums[f"starts_{how}_for_every_G"] = ("bisect", patched(
             bisect, {"  if constexpr (WIDE) {": f"  if constexpr ({flag}) {{"}))
-    return {"k1": k1, "k2": k2, "take": take, "sums": sums}
+    onehot = {"port": ("bisect", bisect)}
+    for t, cs in ONEHOT_SHAPES:
+        onehot[f"threads{t}{'_stcs' if cs else ''}"] = (
+            "bisect", patched(bisect, _onehot_edits(t, cs)))
+    return {"k1": k1, "k2": k2, "take": take, "sums": sums, "onehot": onehot}
 
 
 def _compile(jobs):
@@ -309,18 +353,19 @@ def _builds(parent, kernels):
     jobs = {OUT_DIR / kernel / label / f"{name}.so": text
             for kernel, group in sources.items()
             for label, (name, text) in group.items()}
-    floor = OUT_DIR / "l2_read" / "l2_read.so"
-    jobs[floor] = L2_READ_CU
+    floor = OUT_DIR / "floors" / "floors.so"
+    jobs[floor] = FLOORS_CU
     outs = _compile(jobs)
     like = {"k1": crop_kernel._LIB, "k2": crop_kernel._LIB, "take": wk._LIB,
-            "sums": bk._LIB}
+            "sums": bk._LIB, "onehot": bk._LIB}
     ptxas = {label: ptxas_report(outs[OUT_DIR / "k1" / label / "crop.so"],
                                  "map_crop_kernel")
              for label in sources.get("k1", {})}
-    return ({kernel: {label: _bound(like[kernel],
-                                    OUT_DIR / kernel / label / f"{name}.so")
+    return ({kernel: {label: _bound(
+                FIRST_ONEHOT if (kernel, label) == ("onehot", "parent")
+                else like[kernel], OUT_DIR / kernel / label / f"{name}.so")
                       for label, (name, _) in group.items()}
-             for kernel, group in sources.items()}, _bound(L2_READ, floor),
+             for kernel, group in sources.items()}, _bound(FLOORS, floor),
             ptxas)
 
 
@@ -517,6 +562,102 @@ def _sums(libs, floor_lib, dev, cuda_ms):
     return sums
 
 
+# the first K5d design's entry point: w, idx, T, R, C, P, pitch, out, stream
+FIRST_ONEHOT = launch.Library(bk.SOURCE, dict(
+    bk._LIB._signatures, strive_onehot_rows=[launch.PTR, launch.PTR] +
+    [launch.INT] * 5 + [launch.PTR, launch.PTR]))
+
+
+def _onehot_first_design(lib, w, idx):
+    """The first K5d design, from an earlier checkout's build: its entry
+    point took the shared-memory row pitch of all of w[t]'s columns where
+    the port's takes ``cg`` and the pitch of its group."""
+    (T, R, C), P = w.shape, idx.shape[1]
+    out = torch.empty((T, C, P), dtype=torch.float32, device=idx.device)
+    lib.launch("strive_onehot_rows", w.data_ptr(), idx.data_ptr(), T, R, C,
+               P, bk._smem_pitch(C), out.data_ptr(), launch.stream(idx.device))
+    return out
+
+
+def _onehot(libs, floor_lib, dev, cuda_ms):
+    """K5d's builds (and the port's build at other ``cg``) held bit for
+    bit to the plain version at both shapes and on the edge cases, then
+    timed at both beside the launch floor, an empty kernel on the port's
+    grid and, at the path's shape, the write floor:
+    ``{"onehot_<shape>_ms": ...}``."""
+    variants = {v.__name__: v for _, _, v in mb.VARIANTS}
+    main = {"scripts": variants["v_iota_compare_matmul"](dev).args,
+            "path": kc.bisect_path_args(dev)["onehot_rows"]}
+    edges = [kc.onehot_args(c, dev) for c in kc.onehot_cases().values()]
+    sms = bk._sm_count(dev)
+
+    def group_launch(label, w, idx):
+        """The launch of a ``port_cg<n>`` label: n channels a block, or
+        all of a narrower w's."""
+        cg = min(int(label[len("port_cg"):]), w.shape[2])
+        return bk.onehot_launch(*w.shape, idx.shape[1], sms, cg)
+
+    def call(label, w, idx):
+        if label == "parent":
+            return _onehot_first_design(libs["parent"], w, idx)
+        if label.startswith("port_cg"):
+            return bk._onehot_rows_at(w, idx, group_launch(label, w, idx))
+        with _built_as(bk, libs[label]):
+            return bk.onehot_rows(w, idx)
+
+    def takes(label, w, idx):
+        """Whether the build takes a case: the first design staged all of
+        w[t]; the others as ``onehot_launch`` allows."""
+        (T, R, C), P = w.shape, idx.shape[1]
+        if label == "parent":
+            return R * bk._smem_pitch(C) * 2 <= bk._SMEM_BYTES
+        try:
+            if label.startswith("port_cg"):
+                group_launch(label, w, idx)
+            else:
+                bk.onehot_launch(T, R, C, P, sms)
+        except ValueError:
+            return False
+        return True
+
+    labels = list(libs) + [f"port_cg{g}" for g in ONEHOT_GROUPS]
+    for label in labels:
+        for w, idx in list(main.values()) + edges:
+            if not takes(label, w, idx):
+                continue
+            got = call(label, w, idx)
+            if not torch.equal(got, bk.onehot_rows_plain(w, idx)):
+                raise AssertionError(f"onehot_rows {label} differs from "
+                                     f"plain at {tuple(idx.shape)}, "
+                                     f"{tuple(w.shape)}")
+    res = {}
+    for case, (w, idx) in main.items():
+        fns = {}
+        for label in labels:
+            def timed(label=label, w=w, idx=idx):
+                return cuda_ms(lambda: call(label, w, idx), REPS)
+            fns[label] = timed
+        fns["floor_launch"] = lambda: cuda_ms(
+            lambda: torch.cuda._sleep(0), REPS)
+        shape = bk.onehot_launch(*w.shape, idx.shape[1], sms)
+
+        def empty_grid(shape=shape):
+            floor_lib.launch("strive_empty_grid", *shape["grid"],
+                             bk.ONEHOT_THREADS, shape["smem"],
+                             launch.stream(dev))
+        fns["floor_grid"] = lambda f=empty_grid: cuda_ms(f, REPS)
+        if case == "path":
+            out = torch.empty((w.shape[0], w.shape[2], idx.shape[1]),
+                              device=dev)
+            fns["floor_fill"] = lambda out=out: cuda_ms(
+                lambda: out.fill_(1), REPS)
+        res[f"onehot_{case}_ms"] = _rounds(fns)
+    res["onehot_launch"] = {
+        case: bk.onehot_launch(*w.shape, idx.shape[1], bk._sm_count(dev))
+        for case, (w, idx) in main.items()}
+    return res
+
+
 def run(parent=None, kernels=KERNELS):
     """Check and time every variant of ``kernels``. :return: the
     JSON-able result"""
@@ -534,13 +675,15 @@ def run(parent=None, kernels=KERNELS):
         res.update(_take(libs["take"], dev, cuda_ms))
     if "sums" in kernels:
         res.update(_sums(libs["sums"], floor_lib, dev, cuda_ms))
+    if "onehot" in kernels:
+        res.update(_onehot(libs["onehot"], floor_lib, dev, cuda_ms))
     card = subprocess.run(
         ["nvidia-smi", "-i", str(torch.cuda.current_device()),
          "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()
     names = {"k1": "K1 map_crop", "k2": "K2 footprint_coll_point",
              "take": "K4b window_take",
-             "sums": "K5c window_sums"}
+             "sums": "K5c window_sums", "onehot": "K5d onehot_rows"}
     return {"variants": ", ".join(names[k] for k in kernels),
             "card": card, "kind": torch.cuda.get_device_name(dev),
             "rounds": ROUNDS, "reps": REPS, **res}
