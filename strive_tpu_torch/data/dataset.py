@@ -18,6 +18,7 @@ from typing import Iterator, List, Optional
 import numpy as np
 
 from ..scene import SceneBatch, pad_scene_arrays
+from ..utils.spans import span
 
 
 def _trim_scene(sc, na_max):
@@ -111,13 +112,16 @@ def batch_iterator(ds, batch_size: int, shuffle=True, seed: Optional[int] = 0,
         np.random.default_rng(seed).shuffle(order)
     for start in range(0, len(order), batch_size):
         idx = order[start:start + batch_size]
-        if len(idx) < batch_size:
-            if drop_last:
-                return
-            pad = [int(order[0])] * (batch_size - len(idx))
-            yield _masked_tail(ds.get_batch(list(idx) + pad), len(idx))
-        else:
-            yield ds.get_batch(idx)
+        if len(idx) < batch_size and drop_last:
+            return
+        with span("data.batch"):
+            if len(idx) < batch_size:
+                pad = [int(order[0])] * (batch_size - len(idx))
+                batch = _masked_tail(ds.get_batch(list(idx) + pad),
+                                     len(idx))
+            else:
+                batch = ds.get_batch(idx)
+        yield batch
 
 
 def bucketed_batch_iterator(ds, batch_size: int, shuffle=True,

@@ -46,6 +46,7 @@ from ..scene import SceneBatch
 from .cnn import MapEncoder
 from .common import MLP, StackedGRU
 from .interaction import SceneInteractionNet
+from ..utils.spans import span
 
 
 class NormConfig(NamedTuple):
@@ -188,13 +189,15 @@ class TrafficModel(nn.Module):
         pos_unnorm = self.state_unnorm(pos).reshape(B * NA, 4)
         mapixes = torch.repeat_interleave(map_idx, NA)
         # the crop comes out in the compute dtype (0/1 values: exact)
-        crop = get_map_crop(
-            map_store.packed, map_store.dx, pos_unnorm, mapixes,
-            self.map_bounds, self.map_channels, L=self.map_obs_size_pix,
-            W=self.map_obs_size_pix, layout="nhwc",
-            dtype=self.compute_dtype or torch.float32)
+        with span("map.crop"):
+            crop = get_map_crop(
+                map_store.packed, map_store.dx, pos_unnorm, mapixes,
+                self.map_bounds, self.map_channels, L=self.map_obs_size_pix,
+                W=self.map_obs_size_pix, layout="nhwc",
+                dtype=self.compute_dtype or torch.float32)
         # NCHW view of the NHWC crop: channels_last memory, no copy
-        feat = self.map_encoder(crop.permute(0, 3, 1, 2))
+        with span("map.cnn"):
+            feat = self.map_encoder(crop.permute(0, 3, 1, 2))
         return feat.reshape(B, NA, self.map_feat_size)
 
     def _local_traj_feat(self, frame, traj, vis, lw, sem, name):
@@ -263,58 +266,63 @@ class TrafficModel(nn.Module):
             injected pose.
         :return: (B, NA, FT, 4) NORMALIZED global-frame trajectories.
         """
-        B, NA = z.shape[:2]
-        FT = self.nfuture if nfuture is None else nfuture
-        k = self.map_refresh_every
-        if FT % k != 0:
-            k = 1  # per-step refresh when k does not divide FT
-        sem, lw, mask = scene.sem, scene.lw, scene.mask
-        veh_len = self.att_unnorm(lw)[..., 0]
+        with span("model.decode"):
+            B, NA = z.shape[:2]
+            FT = self.nfuture if nfuture is None else nfuture
+            k = self.map_refresh_every
+            if FT % k != 0:
+                k = 1  # per-step refresh when k does not divide FT
+            sem, lw, mask = scene.sem, scene.lw, scene.mask
+            veh_len = self.att_unnorm(lw)[..., 0]
 
-        prev_state = scene.past[:, :, -1, :]  # (B, NA, 6) normalized
-        pos = prev_state[..., :4]
-        mem = past_feat[None].expand(self.num_memory_layers, B, NA,
-                                     self.past_feat_size)
-        cur_past_feat, cur_map_feat = past_feat, map_feat
-        outs = []
-        for t in range(FT):
-            dec_in = torch.cat([cur_past_feat, cur_map_feat, sem, z, lw],
-                               dim=-1)
-            dec_out = self.decoder_net(dec_in, pos, sem, mask)
-            prev_pose = prev_state[..., :4].reshape(B * NA, 4)
-            if self.output_bicycle:
-                new_bike = bike_step(self.state_unnorm(prev_state),
-                                     dec_out[..., 0], dec_out[..., 1],
-                                     veh_len, self.bike)
-                next_prev = self.state_norm_(new_bike)
-                cur_global = next_prev[..., :4]
-                cur_local = transform2frame(
-                    prev_pose, cur_global.reshape(B * NA, 1, 4)
-                )[:, 0].reshape(B, NA, 4)
-            else:
-                cur_local = normalize_heading(dec_out)
-                cur_global = transform2frame(
-                    prev_pose, cur_local.reshape(B * NA, 1, 4), inverse=True
-                )[:, 0].reshape(B, NA, 4)
-                next_prev = cur_global
-            outs.append(cur_global)  # recorded BEFORE external injection
+            prev_state = scene.past[:, :, -1, :]  # (B, NA, 6) normalized
+            pos = prev_state[..., :4]
+            mem = past_feat[None].expand(self.num_memory_layers, B, NA,
+                                         self.past_feat_size)
+            cur_past_feat, cur_map_feat = past_feat, map_feat
+            outs = []
+            for t in range(FT):
+                dec_in = torch.cat([cur_past_feat, cur_map_feat, sem, z, lw],
+                                   dim=-1)
+                with span("decode.gnn"):
+                    dec_out = self.decoder_net(dec_in, pos, sem, mask)
+                with span("decode.bicycle"):
+                    prev_pose = prev_state[..., :4].reshape(B * NA, 4)
+                    if self.output_bicycle:
+                        new_bike = bike_step(self.state_unnorm(prev_state),
+                                             dec_out[..., 0], dec_out[..., 1],
+                                             veh_len, self.bike)
+                        next_prev = self.state_norm_(new_bike)
+                        cur_global = next_prev[..., :4]
+                        cur_local = transform2frame(
+                            prev_pose, cur_global.reshape(B * NA, 1, 4)
+                        )[:, 0].reshape(B, NA, 4)
+                    else:
+                        cur_local = normalize_heading(dec_out)
+                        cur_global = transform2frame(
+                            prev_pose, cur_local.reshape(B * NA, 1, 4),
+                            inverse=True)[:, 0].reshape(B, NA, 4)
+                        next_prev = cur_global
+                outs.append(cur_global)  # recorded BEFORE external injection
 
-            if ext_future is not None:
-                ext_t = ext_future[:, t]
-                inj_local_ego = transform2frame(prev_state[:, 0, :4],
-                                                ext_t[:, None])[:, 0]
-                cur_global = torch.cat([ext_t[:, None], cur_global[:, 1:]], 1)
-                cur_local = torch.cat([inj_local_ego[:, None],
-                                       cur_local[:, 1:]], 1)
-                if not self.output_bicycle:
-                    next_prev = cur_global
+                if ext_future is not None:
+                    ext_t = ext_future[:, t]
+                    inj_local_ego = transform2frame(prev_state[:, 0, :4],
+                                                    ext_t[:, None])[:, 0]
+                    cur_global = torch.cat([ext_t[:, None],
+                                            cur_global[:, 1:]], 1)
+                    cur_local = torch.cat([inj_local_ego[:, None],
+                                           cur_local[:, 1:]], 1)
+                    if not self.output_bicycle:
+                        next_prev = cur_global
 
-            cur_past_feat, mem = self.decoder_memory(cur_local, mem)
-            if t % k == k - 1:
-                cur_map_feat = self.encode_map(cur_global.detach(),
-                                               scene.map_idx, map_store)
-            prev_state, pos = next_prev, cur_global
-        return torch.stack(outs, dim=2)
+                with span("decode.gru"):
+                    cur_past_feat, mem = self.decoder_memory(cur_local, mem)
+                if t % k == k - 1:
+                    cur_map_feat = self.encode_map(cur_global.detach(),
+                                                   scene.map_idx, map_store)
+                prev_state, pos = next_prev, cur_global
+            return torch.stack(outs, dim=2)
 
     # ---- public API ------------------------------------------------------
     def forward(self, scene: SceneBatch, map_store, eps=None, generator=None,
@@ -368,18 +376,19 @@ class TrafficModel(nn.Module):
 
     def embed(self, scene: SceneBatch, map_store):
         """Prior (+posterior if future present) embedding (reference :372-403)."""
-        map_feat = self.encode_map(scene.past[:, :, -1, :4], scene.map_idx,
-                                   map_store)
-        past_feat = self.encode_past(scene)
-        out = {
-            "prior_out": self.prior(scene, map_feat, past_feat),
-            "map_feat": map_feat,
-            "past_feat": past_feat,
-        }
-        if scene.future is not None:
-            out["posterior_out"] = self.encoder(
-                scene, map_feat, past_feat, self.encode_future(scene))
-        return out
+        with span("model.embed"):
+            map_feat = self.encode_map(scene.past[:, :, -1, :4],
+                                       scene.map_idx, map_store)
+            past_feat = self.encode_past(scene)
+            out = {
+                "prior_out": self.prior(scene, map_feat, past_feat),
+                "map_feat": map_feat,
+                "past_feat": past_feat,
+            }
+            if scene.future is not None:
+                out["posterior_out"] = self.encoder(
+                    scene, map_feat, past_feat, self.encode_future(scene))
+            return out
 
     def decode_embedding(self, z, embed_out, scene: SceneBatch, map_store,
                          ext_future=None, nfuture=None):

@@ -38,6 +38,7 @@ import torch
 from ..losses.adv import adv_gen_loss, tgt_matching_loss
 from ..losses.common import WHOLE_BATCH
 from ..losses.metrics import check_single_veh_coll
+from ..utils.spans import span
 from .loop import Adam
 
 
@@ -131,31 +132,38 @@ class AdvObjective:
             (detached) before the losses
         :return: (loss, grad wrt tgt_z (B, D), grad wrt other_z (B, NA, D))
         """
-        tgt_z = tgt_z.detach().requires_grad_(True)
-        other_z = other_z.detach().requires_grad_(True)
-        z = _combine_z(tgt_z, other_z).detach().requires_grad_(True)
-        with torch.enable_grad():
-            pred = self.decode(z, None if self.closed_loop
-                               else self.planner_fut)
-            if refresh:
-                self.planner_fut = self.planner_fn(pred.detach())
-            lt = self.tgt_loss(pred, tgt_z)
-            # the adversarial loss sees the model's own ego prediction in
-            # closed loop, the recorded planner in open loop (reference :149)
-            la = self.adv_loss_full(
-                pred, other_z, pred[:, 0] if self.closed_loop else None
-            )["loss"]
-            gz_t, g_tgt = torch.autograd.grad(
-                lt, (z, tgt_z), retain_graph=True, allow_unused=True)
-            gz_a, g_other = torch.autograd.grad(
-                la, (z, other_z), allow_unused=True)
-        grad_tgt = gz_t[:, 0]
-        if g_tgt is not None:
-            grad_tgt = grad_tgt + g_tgt
-        grad_other = torch.cat([torch.zeros_like(gz_a[:, :1]), gz_a[:, 1:]], 1)
-        if g_other is not None:
-            grad_other = grad_other + g_other
-        return (lt + la).detach(), grad_tgt, grad_other
+        with span("adv.grad"):
+            tgt_z = tgt_z.detach().requires_grad_(True)
+            other_z = other_z.detach().requires_grad_(True)
+            z = _combine_z(tgt_z, other_z).detach().requires_grad_(True)
+            with torch.enable_grad():
+                pred = self.decode(z, None if self.closed_loop
+                                   else self.planner_fut)
+                if refresh:
+                    self.planner_fut = self.planner_fn(pred.detach())
+                with span("loss.tgt"):
+                    lt = self.tgt_loss(pred, tgt_z)
+                # the adversarial loss sees the model's own ego prediction
+                # in closed loop, the recorded planner in open loop
+                # (reference :149)
+                with span("loss.adv"):
+                    la = self.adv_loss_full(
+                        pred, other_z, pred[:, 0] if self.closed_loop
+                        else None)["loss"]
+                with span("pull.tgt"):
+                    gz_t, g_tgt = torch.autograd.grad(
+                        lt, (z, tgt_z), retain_graph=True, allow_unused=True)
+                with span("pull.adv"):
+                    gz_a, g_other = torch.autograd.grad(
+                        la, (z, other_z), allow_unused=True)
+            grad_tgt = gz_t[:, 0]
+            if g_tgt is not None:
+                grad_tgt = grad_tgt + g_tgt
+            grad_other = torch.cat([torch.zeros_like(gz_a[:, :1]),
+                                    gz_a[:, 1:]], 1)
+            if g_other is not None:
+                grad_other = grad_other + g_other
+            return (lt + la).detach(), grad_tgt, grad_other
 
 
 def run_adv_gen_optim(model, cur_z, lr, loss_weights, scene, map_store,
@@ -202,10 +210,12 @@ def run_adv_gen_optim(model, cur_z, lr, loss_weights, scene, map_store,
         for it in range(num_iters):
             loss, g_tgt, g_other = obj.value_and_grad(
                 tgt_z, other_z, refresh=not open_loop and it % k == 0)
-            tgt_z, other_z = adam.step([tgt_z, other_z], [g_tgt, g_other])
+            with span("adv.adam"):
+                tgt_z, other_z = adam.step([tgt_z, other_z],
+                                           [g_tgt, g_other])
             losses.append(loss)
 
-        with torch.no_grad():
+        with torch.no_grad(), span("adv.final"):
             z_final = _combine_z(tgt_z, other_z)
             final_pred = obj.decode(z_final, None)
             # the final pass targets the TRUE planner (reference :177-209)

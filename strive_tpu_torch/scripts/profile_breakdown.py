@@ -6,9 +6,9 @@ net, decode rollout, decode + gradient.
 
 Port of ``scripts/profile_breakdown.py`` at bench.py's widths
 (``bench.workload``: B=4 x NA=8, FT=12, 256 px crops of 4 channels, TF32
-off). Each layer is timed alone, on a card with CUDA events
-(``utils.timing.cuda_ms``: device ms a call, the calls queued behind a
-spin kernel), on the CPU with the host's clock:
+off). The crop, the CNN and the interaction net are each timed alone, on
+a card with CUDA events (``utils.timing.cuda_ms``: device ms a call, the
+calls queued behind a spin kernel), on the CPU with the host's clock:
 
 - the crop of N = B x NA poses (uniform over the map, random headings, as
   the JAX script draws them) through K1 ``map_crop`` and through its plain
@@ -19,9 +19,13 @@ spin kernel), on the CPU with the host's clock:
 - a 12-step ``decode_embedding`` rollout, and the same with the gradient
   of ``sum(future ** 2)`` with respect to the latents alone (as
   ``jax.grad`` takes it: no parameter gradients). A rollout launches
-  more kernels than the card's queue holds, so the host's pace shows in
-  its events' time; on a card each rollout's line adds its device busy
-  ms, the sum of its kernels' times in one ``torch.profiler`` call.
+  more kernels than the card's queue holds, so events around it would
+  time the host's pace: each rollout is profiled (``torch.profiler``)
+  instead, and its line gives, on a card, the device ms a call of its
+  kernels and copies by the program's span that launched them
+  (``utils.spans.device_by_span``: crop, CNN, GNN, bicycle, GRU, each
+  backward beside it), on the CPU the host ms a call under the profiler
+  and each span's own host ms (its time less its recorded children's).
 
 Prints one line a layer, as the JAX script does, and the device on
 stderr. ``STRIVE_BENCH_B`` / ``_NA`` set the batch, ``STRIVE_BENCH_ITERS``
@@ -33,11 +37,13 @@ from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 import numpy as np
 import torch
 
 from ..maps import crop_kernel, queries
+from ..utils import spans
 from ..utils.timing import device_ms
 from .bench import FT, decode_grad, env_int, workload
 from .common import card_name, resolve_device
@@ -96,19 +102,51 @@ def layer_fns(w, seed=0):
             "decode": decode, "decode_grad": lambda: decode_grad(w)}
 
 
-def busy_ms(fn):
-    """Device ms of ``fn``'s kernels in one call (``torch.profiler``),
-    after a warm-up call."""
+def self_ms(records):
+    """Each span's own ms (its time less its recorded children's), summed
+    by name."""
+    out = {}
+    for r in records:
+        out[r.name] = out.get(r.name, 0.0) + (r.end_ns - r.start_ns) * 1e-6
+        if r.parent is not None:
+            p = records[r.parent].name
+            out[p] = out.get(p, 0.0) - (r.end_ns - r.start_ns) * 1e-6
+    return out
+
+
+def by_span(fn, reps, device):
+    """``reps`` calls of ``fn`` under ``torch.profiler``, after a warm-up
+    call. :return: (ms a call, {span: ms a call}): on a card the device's
+    (``spans.device_by_span``), on the CPU the host's (:func:`self_ms`)."""
     from torch.profiler import ProfilerActivity, profile
 
+    cuda = device.type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA") / 1e3
+    if cuda:
+        torch.cuda.synchronize(device)
+    spans.clear()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        if cuda:
+            torch.cuda.synchronize(device)
+        host_s = time.perf_counter() - t0
+    rec = spans.records()
+    spans.clear()
+    if cuda:
+        parts = {k: v * 1e3 for k, v in spans.device_by_span(prof).items()}
+        total = sum(parts.values())
+    else:
+        parts, total = self_ms(rec), host_s * 1e3
+    return total / reps, {k: v / reps for k, v in parts.items()}
+
+
+def span_text(parts):
+    """``name ms, ...`` by ms, largest first."""
+    return ", ".join(f"{k} {v:.3f}" for k, v in
+                     sorted(parts.items(), key=lambda kv: -kv[1]))
 
 
 def main(argv=None):
@@ -120,26 +158,29 @@ def main(argv=None):
     n = env_int("STRIVE_BENCH_ITERS", 10)
     N = B * NA
     w = workload(device, B, NA)
+    cuda = device.type == "cuda"
     print(f"device={card_name(device)}; "
-          + ("device ms (CUDA events)" if device.type == "cuda"
+          + ("device ms (CUDA events; the rollouts: torch.profiler)" if cuda
              else "host ms"), file=sys.stderr)
     fns = layer_fns(w)
-    ms = {k: device_ms(fn, n if k not in ("decode", "decode_grad")
-                       else max(1, n // 2), device)
-          for k, fn in fns.items()}
+    ms = {k: device_ms(fns[k], n, device)
+          for k in ("crop_plain", "crop_k1", "cnn", "gnn")}
+    roll = {k: by_span(fns[k], max(1, n // 2), device)
+            for k in ("decode", "decode_grad")}
     px, C = w["model"].map_obs_size_pix, w["model"].map_channels
-    kernel = "K1 map_crop" if device.type == "cuda" else "plain (CPU)"
+    kernel = "K1 map_crop" if cuda else "plain (CPU)"
     print(f"crop {N} agents {px}x{px}x{C}: plain path "
           f"{ms['crop_plain']:.3f} ms, {kernel} path {ms['crop_k1']:.3f} ms")
     print(f"map CNN {N} crops: {ms['cnn']:.3f} ms")
     print(f"interaction net: {ms['gnn']:.3f} ms")
-    busy = {k: (f"; device busy {busy_ms(fns[k]):.3f} ms"
-                if device.type == "cuda" else "")
-            for k in ("decode", "decode_grad")}
-    print(f"decode rollout (FT={FT}): {ms['decode']:.3f} ms  "
-          f"({N * FT / (ms['decode'] * 1e-3):.0f} agent-steps/s)"
-          f"{busy['decode']}")
-    print(f"decode + grad: {ms['decode_grad']:.3f} ms{busy['decode_grad']}")
+    what = "device ms" if cuda else \
+        "host ms under the profiler; own host ms"
+    (dec, dec_parts), (grad, grad_parts) = roll["decode"], roll["decode_grad"]
+    print(f"decode rollout (FT={FT}): {dec:.3f} {what} by span: "
+          f"{span_text(dec_parts)} ({N * FT / (dec * 1e-3):.0f} "
+          f"agent-steps/s)")
+    print(f"decode + grad: {grad:.3f} {what} by span: "
+          f"{span_text(grad_parts)}")
     return 0
 
 

@@ -42,6 +42,7 @@ from .optim.loop import Adam, AdamW
 from .parallel.mesh import ShardedBatch, shard_rows, sum_tensors
 from .utils.launch import is_device_fault
 from .utils.logger import Logger
+from .utils.spans import span
 
 
 def compute_kl_weight(cur_epoch, end_epoch, final_kl_weight):
@@ -87,14 +88,17 @@ class Trainer:
             eps_samp = None if eps_samp is None else eps_samp[rows]
             batch = ShardedBatch()
         dev = scene.past.device
-        pred = self.model(
-            scene, map_store, eps=eps.to(dev), future_sample=self.do_sample,
-            eps_samp=None if eps_samp is None else eps_samp.to(dev))
-        w = dict(self.loss_weights, kl=kl_weight)
-        out = traffic_model_loss(scene, pred, w, self.state_norm,
-                                 self.att_norm, map_store, batch)
-        with torch.no_grad():
-            err = compute_err(scene, pred, self.state_norm, batch)
+        with span("train.forward"):
+            pred = self.model(
+                scene, map_store, eps=eps.to(dev),
+                future_sample=self.do_sample,
+                eps_samp=None if eps_samp is None else eps_samp.to(dev))
+        with span("train.loss"):
+            w = dict(self.loss_weights, kl=kl_weight)
+            out = traffic_model_loss(scene, pred, w, self.state_norm,
+                                     self.att_norm, map_store, batch)
+            with torch.no_grad():
+                err = compute_err(scene, pred, self.state_norm, batch)
         return out["loss"], {**out, **err}, batch
 
     @staticmethod
@@ -112,7 +116,8 @@ class Trainer:
         with torch.enable_grad():
             loss, metrics, batch = self._loss(scene, map_store, kl_weight,
                                               eps, eps_samp)
-            grads = torch.autograd.grad(loss, self.params)
+            with span("train.backward"):
+                grads = torch.autograd.grad(loss, self.params)
         return sum_tensors(grads), self._whole(metrics, batch)
 
     def train_step(self, scene, map_store, kl_weight, eps, eps_samp=None):
@@ -120,10 +125,11 @@ class Trainer:
         (detached 0-dim tensors)."""
         grads, metrics = self.gradients(scene, map_store, kl_weight, eps,
                                         eps_samp)
-        new = self.opt.step([p.detach() for p in self.params], grads)
-        with torch.no_grad():
-            for p, q in zip(self.params, new):
-                p.copy_(q)
+        with span("train.adam"):
+            new = self.opt.step([p.detach() for p in self.params], grads)
+            with torch.no_grad():
+                for p, q in zip(self.params, new):
+                    p.copy_(q)
         self.step_count += 1
         return metrics
 
@@ -146,33 +152,37 @@ class Trainer:
         n = 0
         t0 = time.time()
         for i, scene in enumerate(batches):
-            t_step = time.perf_counter()
-            try:
-                eps, eps_samp = self.draw_noise(scene)
-                metrics = step_fn(scene, map_store, kl_weight, eps, eps_samp)
-                loss_val = float(metrics["loss"])
-            except RuntimeError as e:
-                if n == 0 or is_device_fault(e):
-                    raise
-                Logger.log(f"  caught error in batch {i}: {e}; skipping")
-                continue
-            if step_seconds is not None:
-                if scene.past.is_cuda:
-                    torch.cuda.synchronize(scene.past.device)
-                step_seconds.append(time.perf_counter() - t_step)
-            n += 1
-            step_counter += int(scene.B)
-            for k, v in metrics.items():
-                if v.dim() == 0:
-                    agg.setdefault(k, 0.0)
-            if log_every and (i + 1) % log_every == 0:
-                Logger.log(f"  batch {i + 1}: loss={loss_val:.4f}")
-            for k in agg:
-                agg[k] += float(metrics[k])
-            if wandb_run is not None and train:
-                wandb_run.log(
-                    {f"Train Batch Mean {k}": float(metrics[k]) for k in agg},
-                    step=step_counter)
+            with span("train.step"):
+                t_step = time.perf_counter()
+                try:
+                    with span("train.noise"):
+                        eps, eps_samp = self.draw_noise(scene)
+                    metrics = step_fn(scene, map_store, kl_weight, eps,
+                                      eps_samp)
+                    with span("train.read"):
+                        loss_val = float(metrics["loss"])
+                except RuntimeError as e:
+                    if n == 0 or is_device_fault(e):
+                        raise
+                    Logger.log(f"  caught error in batch {i}: {e}; skipping")
+                    continue
+                if step_seconds is not None:
+                    if scene.past.is_cuda:
+                        torch.cuda.synchronize(scene.past.device)
+                    step_seconds.append(time.perf_counter() - t_step)
+                n += 1
+                step_counter += int(scene.B)
+                for k, v in metrics.items():
+                    if v.dim() == 0:
+                        agg.setdefault(k, 0.0)
+                if log_every and (i + 1) % log_every == 0:
+                    Logger.log(f"  batch {i + 1}: loss={loss_val:.4f}")
+                with span("train.read"):
+                    for k in agg:
+                        agg[k] += float(metrics[k])
+                if wandb_run is not None and train:
+                    wandb_run.log({f"Train Batch Mean {k}": float(metrics[k])
+                                   for k in agg}, step=step_counter)
         out = {k: v / max(n, 1) for k, v in agg.items()}
         out["epoch_time"] = time.time() - t0
         return out, step_counter

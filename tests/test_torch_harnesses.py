@@ -68,6 +68,13 @@ def test_profile_breakdown_prints_each_layer(tiny, capsys):
         "crop 2 agents 256x256x4", "map CNN 2 crops", "interaction net",
         "decode rollout (FT=12)", "decode + grad"]
     assert "plain path" in out[0] and "plain (CPU) path" in out[0]
+    # the rollouts by the program's spans (on the CPU: each span's own
+    # host ms under the profiler)
+    for line in out[3:]:
+        assert "host ms under the profiler; own host ms by span: " in line
+        assert all(f"{name} " in line for name in (
+            "map.crop", "map.cnn", "decode.gnn", "decode.bicycle",
+            "decode.gru", "model.decode"))
 
 
 def test_ablate_hotpath_prints_each_variant(tiny, capsys):
