@@ -253,7 +253,7 @@ class TrafficModel(nn.Module):
     # ---- decoder ---------------------------------------------------------
     def decoder(self, scene: SceneBatch, map_feat, past_feat, z, map_store,
                 ext_future: Optional[torch.Tensor] = None,
-                nfuture: Optional[int] = None):
+                nfuture: Optional[int] = None, copies: int = 1):
         """Autoregressive rollout (reference :589-704).
 
         :param z: (B, NA, z) latents
@@ -264,6 +264,13 @@ class TrafficModel(nn.Module):
             state keeps the model's own rollout (reference :667-680), the
             direct output (``output_bicycle=False``) continues from the
             injected pose.
+        :param copies: the batch is ``copies`` copies of equal value of
+            B / copies scenes, copy-major (every input, ``z`` included).
+            Each refresh crops and encodes the map at copy 0's poses alone
+            and repeats the feature to the other copies: the crop takes
+            detached poses, so the map branch carries no gradient that
+            could tell the copies apart (``optim/adv.py`` decodes two, one
+            for each loss, and pulls both back in one pass).
         :return: (B, NA, FT, 4) NORMALIZED global-frame trajectories.
         """
         with span("model.decode"):
@@ -318,9 +325,14 @@ class TrafficModel(nn.Module):
 
                 with span("decode.gru"):
                     cur_past_feat, mem = self.decoder_memory(cur_local, mem)
-                if t % k == k - 1:
+                if t % k == k - 1 and copies == 1:
                     cur_map_feat = self.encode_map(cur_global.detach(),
                                                    scene.map_idx, map_store)
+                elif t % k == k - 1:  # copy 0's feature, to every copy
+                    n = B // copies
+                    cur_map_feat = self.encode_map(
+                        cur_global[:n].detach(), scene.map_idx[:n],
+                        map_store).repeat(copies, 1, 1)
                 prev_state, pos = next_prev, cur_global
             return torch.stack(outs, dim=2)
 

@@ -18,11 +18,17 @@ Port of ``strive_tpu/optim/adv.py`` (reference ``utils/adv_gen_optim.py``).
   and the adversarial loss targets the model's own ego prediction
   (reference :134-149).
 
-Each iteration decodes once and takes two ``torch.autograd.grad`` pulls
-through that one graph: the tgt-matching loss's cotangent reaches the
-ego latent (slot 0) only, the adversarial loss's cotangent every latent
-but slot 0 — the routing of the reference's two detach-partitioned
-decodes (``adv_gen_optim.py:119-130``, ``strive_tpu/optim/adv.py:159-194``).
+The tgt-matching loss's cotangent reaches the ego latent (slot 0) only,
+the adversarial loss's every latent but slot 0 — the routing of the
+reference's two detach-partitioned decodes (``adv_gen_optim.py:119-130``,
+``strive_tpu/optim/adv.py:159-194``). Each iteration decodes two copies of
+equal value of the batch in one rollout of 2B scenes (copy-major; the map
+cropped and encoded once, on copy 0: ``TrafficModel.decoder``'s
+``copies``): the tgt-matching loss reads copy 0, the adversarial loss
+copy 1. The GNN mixes agents of one scene only, so the copies do not
+interact, and one ``torch.autograd.grad`` of the summed loss gives each
+copy's latents its own loss's cotangent: the two routed gradients in one
+backward pass, through a graph it frees.
 
 The model's parameters are frozen for the run, so the map branch (crop at
 a detached pose, CNN) records no autograd graph.
@@ -91,6 +97,14 @@ class AdvObjective:
         self.veh_coll_buffer, self.ref_compat = veh_coll_buffer, ref_compat
         self.lw_unnorm = model.att_unnorm(scene.lw)
         self.batch = batch
+        # the two copies that value_and_grad decodes, built once
+        rep = torch.arange(scene.mask.shape[0],
+                           device=scene.mask.device).repeat(2)
+        with torch.no_grad():
+            self.scene2 = scene.take(rep)
+            self.map_feat2 = embed_info["map_feat"][rep]
+            self.past_feat2 = embed_info["past_feat"][rep]
+            self.ext2 = None if planner_fn is not None else planner_fut[rep]
 
     @property
     def closed_loop(self):
@@ -126,44 +140,46 @@ class AdvObjective:
             attack_agt_mask=self.attack_agt_mask, batch=self.batch)
 
     def value_and_grad(self, tgt_z, other_z, refresh=False):
-        """One decode, two autograd pulls (module doc).
+        """One decode of two copies, one autograd pull (module doc).
 
         :param refresh: closed loop: re-roll the planner on this decode
-            (detached) before the losses
+            (copy 0, detached) before the losses
         :return: (loss, grad wrt tgt_z (B, D), grad wrt other_z (B, NA, D))
         """
         with span("adv.grad"):
+            B = tgt_z.shape[0]
             tgt_z = tgt_z.detach().requires_grad_(True)
             other_z = other_z.detach().requires_grad_(True)
-            z = _combine_z(tgt_z, other_z).detach().requires_grad_(True)
+            z = _combine_z(tgt_z, other_z).detach().repeat(2, 1, 1)
+            z.requires_grad_(True)
             with torch.enable_grad():
-                pred = self.decode(z, None if self.closed_loop
-                                   else self.planner_fut)
+                pred = self.model.decoder(self.scene2, self.map_feat2,
+                                          self.past_feat2, z, self.map_store,
+                                          self.ext2, self.FT, copies=2)
+                pred_t, pred_a = pred[:B], pred[B:]
                 if refresh:
-                    self.planner_fut = self.planner_fn(pred.detach())
+                    self.planner_fut = self.planner_fn(pred_t.detach())
                 with span("loss.tgt"):
-                    lt = self.tgt_loss(pred, tgt_z)
+                    lt = self.tgt_loss(pred_t, tgt_z)
                 # the adversarial loss sees the model's own ego prediction
                 # in closed loop, the recorded planner in open loop
                 # (reference :149)
                 with span("loss.adv"):
                     la = self.adv_loss_full(
-                        pred, other_z, pred[:, 0] if self.closed_loop
+                        pred_a, other_z, pred_a[:, 0] if self.closed_loop
                         else None)["loss"]
-                with span("pull.tgt"):
-                    gz_t, g_tgt = torch.autograd.grad(
-                        lt, (z, tgt_z), retain_graph=True, allow_unused=True)
+                loss = lt + la
                 with span("pull.adv"):
-                    gz_a, g_other = torch.autograd.grad(
-                        la, (z, other_z), allow_unused=True)
-            grad_tgt = gz_t[:, 0]
+                    gz, g_tgt, g_other = torch.autograd.grad(
+                        loss, (z, tgt_z, other_z), allow_unused=True)
+            grad_tgt = gz[:B, 0]
             if g_tgt is not None:
                 grad_tgt = grad_tgt + g_tgt
-            grad_other = torch.cat([torch.zeros_like(gz_a[:, :1]),
-                                    gz_a[:, 1:]], 1)
+            grad_other = torch.cat([torch.zeros_like(gz[B:, :1]),
+                                    gz[B:, 1:]], 1)
             if g_other is not None:
                 grad_other = grad_other + g_other
-            return (lt + la).detach(), grad_tgt, grad_other
+            return loss.detach(), grad_tgt, grad_other
 
 
 def run_adv_gen_optim(model, cur_z, lr, loss_weights, scene, map_store,

@@ -6,12 +6,21 @@
   two-decode, detach-partitioned form of the reference
   (``adv_gen_optim.py:119-130``), mirroring
   tests/test_optim.py::test_single_decode_vjp_matches_two_decode;
-- three Adam iterations through ``run_adv_gen_optim`` on both sides.
+- three Adam iterations through ``run_adv_gen_optim`` on both sides;
+- the port's one pull over two copies of the rollout against its former
+  iteration, kept here (one decode, a pull for each loss through it), in
+  open loop and in closed loop with the planner re-rolled every
+  iteration, for three Adam steps.
 
 Tolerances: loss rtol 1e-4 and gradients rtol 1e-3 / atol 1e-5 for one
 iteration (float32 rollouts summed in another order); the two torch forms
 share every op, so rtol 1e-4 / atol 1e-6; after three Adam steps the loss
-history rtol 1e-3 and the final latents atol 1e-4.
+history rtol 1e-3 and the final latents atol 1e-4; the fold against the
+two pulls rtol 1e-5, and atol 1e-5 of each tensor's largest magnitude
+(measured 1.7e-6): the same ops, but the rollout's GEMMs run at twice the
+rows, and the CPU's GEMM can round otherwise at another row count (it
+does at 8 rows against 16); the copies agree with each other bit for bit,
+with the one-copy decode within 1e-6.
 """
 
 import numpy as np
@@ -20,15 +29,22 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from helpers import make_scene, tiny_model, tiny_store
+from helpers import TEST_CATS, make_scene, tiny_model, tiny_store
 from torch_helpers import n, port_model, scene_to_torch, t
 
 from strive_tpu.losses.adv import adv_gen_loss, tgt_matching_loss
 from strive_tpu.model.traffic_model import init_model_params
 from strive_tpu.optim.adv import run_adv_gen_optim as j_run
+from strive_tpu_torch.maps import lanegraph as tlg
 from strive_tpu_torch.maps import synthetic_map_store as t_store
-from strive_tpu_torch.optim.adv import AdvObjective, frozen_params
+from strive_tpu_torch.normalize import (att_normalizer_for,
+                                        state_normalizer_for)
+from strive_tpu_torch.optim.adv import (AdvObjective, _combine_z,
+                                        frozen_params)
 from strive_tpu_torch.optim.adv import run_adv_gen_optim as t_run
+from strive_tpu_torch.optim.loop import Adam
+from strive_tpu_torch.planners import PLANNER_CONFIGS
+from strive_tpu_torch.planners.device_planner import DeviceRulePlanner
 
 WEIGHTS = {"adv_crash": 2.0, "motion_prior": 1.0, "motion_prior_atk": 0.005,
            "coll_veh": 20.0, "coll_veh_plan": 20.0, "coll_env": 20.0,
@@ -54,12 +70,53 @@ def setup():
     return model, params, scene, js, je, tm, tsc, ts, te
 
 
-def _objective(tm, tsc, ts, te):
+def _objective(tm, tsc, ts, te, planner_fn=None):
     prior = te["prior_out"]
     return AdvObjective(tm, tsc, ts, te, WEIGHTS, (prior[0][:, 0],
                                                    prior[1][:, 0]),
                         prior, prior[0].detach(),
-                        tsc.future_gt[:, 0, :, :4], FEAS_T, None)
+                        None if planner_fn else tsc.future_gt[:, 0, :, :4],
+                        FEAS_T, None, planner_fn=planner_fn, future_len=6)
+
+
+def _two_pulls(obj, tgt_z, other_z, refresh=False):
+    """``AdvObjective.value_and_grad`` before the fold: one decode of the B
+    scenes, and a ``torch.autograd.grad`` for each loss through it."""
+    tgt_z = tgt_z.detach().requires_grad_(True)
+    other_z = other_z.detach().requires_grad_(True)
+    z = _combine_z(tgt_z, other_z).detach().requires_grad_(True)
+    with torch.enable_grad():
+        pred = obj.decode(z, None if obj.closed_loop else obj.planner_fut)
+        if refresh:
+            obj.planner_fut = obj.planner_fn(pred.detach())
+        lt = obj.tgt_loss(pred, tgt_z)
+        la = obj.adv_loss_full(pred, other_z, pred[:, 0] if obj.closed_loop
+                               else None)["loss"]
+        gz_t, g_tgt = torch.autograd.grad(lt, (z, tgt_z), retain_graph=True,
+                                          allow_unused=True)
+        gz_a, g_other = torch.autograd.grad(la, (z, other_z),
+                                            allow_unused=True)
+    grad_tgt = gz_t[:, 0]
+    if g_tgt is not None:
+        grad_tgt = grad_tgt + g_tgt
+    grad_other = torch.cat([torch.zeros_like(gz_a[:, :1]), gz_a[:, 1:]], 1)
+    if g_other is not None:
+        grad_other = grad_other + g_other
+    return (lt + la).detach(), grad_tgt, grad_other
+
+
+def _device_planner(js, tsc):
+    """The port's rule planner on the card's path (here the CPU), reset on
+    the batch: ``fn(future_pred_norm) -> (B, FT, 4)``."""
+    state_norm = state_normalizer_for(TEST_CATS)
+    init = state_norm.unnormalize(n(tsc.past_gt[:, :, -1]))
+    lw = att_normalizer_for(TEST_CATS).unnormalize(n(tsc.lw))
+    graphs = {m: tlg.synthetic_lanegraph(extent_m=128.0, spacing_m=32.0)
+              for m in js.map_names}
+    planner = DeviceRulePlanner(graphs, list(js.map_names),
+                                PLANNER_CONFIGS["default"], device="cpu")
+    planner.reset(init, lw, n(tsc.mask), n(tsc.map_idx))
+    return planner.make_fn(state_norm, 0.5, 6)
 
 
 def test_one_iteration_matches_jax(setup):
@@ -141,3 +198,30 @@ def test_three_iterations_match_jax(setup):
     with pytest.raises(NotImplementedError):
         t_run(tm, tp[0], 0.05, WEIGHTS, tsc, ts, 1, te, "no_such_planner",
               (tp[0][:, 0], tp[1][:, 0]), tp, FEAS_T, None)
+
+
+@pytest.mark.parametrize("loop", ["open", "closed"])
+def test_one_pull_over_two_copies_matches_two_pulls(setup, loop):
+    """The fold's loss and gradients equal the two pulls', iteration by
+    iteration, along the fold's own Adam steps (closed loop: the planner
+    re-rolled on every decode, ``planner_refresh_every`` 1)."""
+    model, params, scene, js, je, tm, tsc, ts, te = setup
+    fn = _device_planner(js, tsc) if loop == "closed" else None
+    folded, ref = (_objective(tm, tsc, ts, te, fn) for _ in range(2))
+    z0 = te["prior_out"][0].detach()
+    tgt_z, other_z = z0[:, 0], z0
+    adam = Adam([tgt_z, other_z], 0.05)
+    with frozen_params(tm):
+        for _ in range(3):
+            refresh = fn is not None
+            got = folded.value_and_grad(tgt_z, other_z, refresh=refresh)
+            want = _two_pulls(ref, tgt_z, other_z, refresh=refresh)
+            if refresh:
+                torch.testing.assert_close(folded.planner_fut,
+                                           ref.planner_fut, rtol=1e-5,
+                                           atol=1e-7)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, rtol=1e-5,
+                                           atol=1e-5 * float(w.abs().max()))
+            assert got[2][:, 0].abs().max() == 0  # the ego is tgt_z's
+            tgt_z, other_z = adam.step([tgt_z, other_z], list(got[1:]))

@@ -146,28 +146,35 @@ def test_no_profiler_no_record_function(monkeypatch, tiny):
 
 
 def test_adversarial_iteration_spans(tiny):
-    _, rec, _ = _profiled(lambda: _adv(tiny))
+    _, rec, _ = _profiled(lambda: _adv(tiny, iters=2))
     names = _names(rec)
     for name in ("model.embed", "adv.grad", "model.decode", "decode.gnn",
                  "decode.bicycle", "decode.gru", "map.crop", "map.cnn",
-                 "loss.tgt", "loss.adv", "pull.tgt", "pull.adv", "adv.adam",
+                 "loss.tgt", "loss.adv", "pull.adv", "adv.adam",
                  "adv.final"):
         assert name in names, name
     grad = names.index("adv.grad")
     assert rec[grad].parent is None
+    # one backward pass an iteration: a single pull under each unit
+    units = [i for i, r in enumerate(rec) if r.name == "adv.grad"]
+    pulls = [r for r in rec if r.name.startswith("pull.")]
+    assert len(units) == 2
+    assert [r.name for r in pulls] == ["pull.adv"] * 2
+    assert [r.parent for r in pulls] == units
     decodes = [i for i, r in enumerate(rec) if r.name == "model.decode"]
-    assert len(decodes) == 2  # the iteration's and the final one
+    assert len(decodes) == 3  # the iterations' and the final one
     inner = decodes[0]
     assert rec[inner].parent == grad
     gnn = [i for i, r in enumerate(rec) if r.name == "decode.gnn"
            and r.parent == inner]
     assert len(gnn) == FT
     assert _chain(rec, gnn[0]) == ["decode.gnn", "model.decode", "adv.grad"]
-    assert _chain(rec, decodes[1])[-1] == "adv.final"
+    assert _chain(rec, decodes[1]) == ["model.decode", "adv.grad"]
+    assert _chain(rec, decodes[2])[-1] == "adv.final"
     crops = [i for i, r in enumerate(rec) if r.name == "map.crop"]
     assert _chain(rec, crops[0]) == ["map.crop", "model.embed"]
     assert _chain(rec, crops[1])[1:] == ["model.decode", "adv.grad"]
-    for name in ("loss.tgt", "loss.adv", "pull.tgt", "pull.adv"):
+    for name in ("loss.tgt", "loss.adv", "pull.adv"):
         assert _chain(rec, names.index(name)) == [name, "adv.grad"]
     for r in rec:
         assert r.start_ns <= r.end_ns
