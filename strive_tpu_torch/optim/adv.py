@@ -158,7 +158,8 @@ class AdvObjective:
                                           self.ext2, self.FT, copies=2)
                 pred_t, pred_a = pred[:B], pred[B:]
                 if refresh:
-                    self.planner_fut = self.planner_fn(pred_t.detach())
+                    with span("planner.rollout"):
+                        self.planner_fut = self.planner_fn(pred_t.detach())
                 with span("loss.tgt"):
                     lt = self.tgt_loss(pred_t, tgt_z)
                 # the adversarial loss sees the model's own ego prediction

@@ -11,9 +11,12 @@ clamp of PARITY.md §16.
 
 Layout on the card:
 
-- the lane tables are built on the host as numpy (``build_lane_tables``,
-  ``stack_lane_tables``: copies of the JAX package's host precompute) and
-  go to the device once, when the planner is made;
+- the lane tables are built once, when the planner is made, on its device
+  (``DeviceTables.from_graphs``): torch copies of the JAX package's host
+  precompute (``build_lane_tables``, ``stack_lane_tables``), the fields
+  that the device functions read equal to its bit for bit. A numpy build
+  took 44 s on an H100 machine's host for four maps of 376k edges at
+  1 m; this one takes 0.4 s on the card;
 - JAX's ``vmap``s over scenes, plan steps, agents, clusters and branch
   codes are leading batch axes here, so the planner adds launches per plan
   step, not per scene or per agent. The ego-independent half of every plan
@@ -37,235 +40,20 @@ import numpy as np
 import torch
 
 from ..maps.queries import linspace
+from ..utils.spans import span
 from .hardcode import LANE_DS, LANE_SIG, SBUFFER, PlannerConfig
 
 BIG = 1e9
+
+# the planner's work, counted on the host where it is issued: rollouts,
+# and the pose-edge pairs that ``_match_edges`` computes over the stacked
+# tables
+COUNTS = {"calls": 0, "match_pairs": 0}
 
 # Branch codes (b1, b2): successor index taken at the first/second fork of
 # a forward walk (reference expand_verts :379-414; PARITY.md §12 bounds
 # the explored set to these four).
 _BRANCH_CODES = np.array([[0, 0], [1, 0], [0, 1], [1, 1]], np.int32)
-
-
-# ---------------------------------------------------------------------------
-# host precompute (numpy copy of tpu_planner.py:85-439)
-# ---------------------------------------------------------------------------
-
-
-class LaneTables(NamedTuple):
-    """Padded lane-graph arrays, built on the host (numpy).
-
-    ``chain0_f``/``chain0_b`` hold the branch-0 walk (always follow
-    successor/predecessor 0) precomputed for every edge, plus each walk's
-    first fork position. Multi-map stores concatenate all maps into one
-    edge/vertex axis with a per-edge map id (``emap``): lane matching masks
-    edges of other maps, so one table serves scenes on different maps."""
-
-    edges: np.ndarray     # (E, 5) x0, y0, hcos, hsin, len
-    emap: np.ndarray      # (E,) map id of each edge (-1 = padding)
-    src: np.ndarray       # (E,) start vertex
-    dst: np.ndarray       # (E,) end vertex
-    succ: np.ndarray      # (E, S) successor edge ids (E = none)
-    succ_deg: np.ndarray  # (E,)
-    pred: np.ndarray      # (E, S) predecessor edge ids
-    pred_deg: np.ndarray  # (E,)
-    vxy: np.ndarray       # (V, 2)
-    chain0_f: np.ndarray  # (E, K+1) vertices of the fwd branch-0 walk
-    fork_f: np.ndarray    # (E,) first fwd fork step (K+1 = none)
-    forke_f: np.ndarray   # (E,) edge id at that fork
-    chain0_b: np.ndarray  # (E, KB+1) vertices of the bwd branch-0 walk
-    fork_b: np.ndarray    # (E,) first bwd fork step
-    forke_b: np.ndarray   # (E,) edge id at that fork
-    chainc_f: np.ndarray  # (E, 4, K+1) fwd walk per branch code
-    distc_f: np.ndarray   # (E, 4) walk distinct from branch-0 walk?
-    # extended XY polylines: the runtime walk is ONE row read
-    chainxy_f: np.ndarray   # (E, 4, K+1, 2) fwd polyline per branch code
-    chain0xy_f: np.ndarray  # (E, K+1, 2) fwd branch-0 polyline
-    chain0xy_b: np.ndarray  # (E, KB+1, 2) bwd branch-0 polyline
-
-
-def _host_chain0(E, table, deg, endv, K):
-    """(E, K+1) branch-0 walk vertices + first fork step/edge (numpy)."""
-    chain = np.full((E, K + 1), -1, np.int64)
-    fork = np.full(E, K + 1, np.int64)
-    forke = np.zeros(E, np.int64)
-    cur = np.arange(E)
-    alive = np.ones(E, bool)
-    chain[:, 0] = endv[cur]
-    for j in range(K):
-        d = np.where(alive, deg[np.minimum(cur, E - 1)], 0)
-        at_fork = alive & (d > 1) & (fork > K)
-        fork[at_fork] = j
-        forke[at_fork] = cur[at_fork]
-        nxt = np.where(d > 0, table[np.minimum(cur, E - 1), 0], E)
-        alive = alive & (nxt < E)
-        cur = np.where(alive, nxt, cur)
-        chain[:, j + 1] = np.where(alive, endv[np.minimum(cur, E - 1)], -1)
-    return chain, fork, forke
-
-
-def _host_chainc(chain0, fork, forke, succ, deg, codes):
-    """(E, NC, K+1) branch-coded walks + (E, NC) distinctness (numpy): for
-    every edge and branch code (b1, b2), the walk that takes successor
-    ``b1`` at the first fork and ``b2`` at the next (reference expand_verts
-    :379-414 explores these chains at runtime)."""
-    E, K1 = chain0.shape
-    NONE = K1
-    e1 = np.arange(E)
-
-    def seg_after_fork(e, b):
-        ec = np.minimum(e, E - 1)
-        f = np.where(e < E, fork[ec], NONE)
-        fe = np.minimum(forke[ec], E - 1)
-        d = deg[fe]
-        b_used = np.minimum(b, np.maximum(d - 1, 0))
-        nxt = succ[fe, b_used]
-        return f, np.where(f <= K1 - 1, nxt, E), b_used
-
-    out = np.empty((E, len(codes), K1), chain0.dtype)
-    dist = np.empty((E, len(codes)), bool)
-    i = np.arange(K1)[None, :]
-    for ci, (b1, b2) in enumerate(codes):
-        f1, e2, b1_used = seg_after_fork(e1, b1)
-        f2, e3, b2_used = seg_after_fork(e2, b2)
-        j2 = i - f1[:, None] - 1
-        j3 = j2 - f2[:, None] - 1
-        v = chain0[e1]
-        use2 = (j2 >= 0) & (e2 < E)[:, None]
-        c2 = chain0[np.minimum(e2, E - 1)]
-        v = np.where(use2, np.take_along_axis(
-            c2, np.clip(j2, 0, K1 - 1), axis=1), v)
-        use3 = (j3 >= 0) & (e3 < E)[:, None] & use2
-        c3 = chain0[np.minimum(e3, E - 1)]
-        v = np.where(use3, np.take_along_axis(
-            c3, np.clip(j3, 0, K1 - 1), axis=1), v)
-        out[:, ci] = v
-        dist[:, ci] = (((b1_used > 0) & (f1 <= K1 - 1))
-                       | ((b2_used > 0) & (e2 < E) & (f2 <= K1 - 1)))
-    return out, dist
-
-
-def _host_extend_xy(chain_v, edges, vxy, edge_ids, forward):
-    """Vertex-id chains -> (..., K+1, 2) polylines with dead ends
-    extrapolated along the last valid direction (reference _extend
-    :416-431). A walk with a SINGLE valid vertex takes the edge's own
-    heading (float32 throughout).
-
-    :param chain_v: (..., K+1) int vertex ids, -1 = invalid
-    :param edge_ids: (...,) int edge id per chain (for the fallback dir)
-    """
-    E = edges.shape[0]
-    V = vxy.shape[0]
-    K1 = chain_v.shape[-1]
-    i = np.arange(K1)
-    valid = chain_v >= 0
-    xy = vxy[np.clip(chain_v, 0, V - 1)].astype(np.float32)
-    last = np.max(np.where(valid, i, 0), axis=-1)            # (...,)
-    p_last = np.take_along_axis(
-        xy, last[..., None, None].repeat(2, -1), axis=-2)[..., 0, :]
-    prev = np.maximum(last - 1, 0)
-    p_prev = np.take_along_axis(
-        xy, prev[..., None, None].repeat(2, -1), axis=-2)[..., 0, :]
-    d_seg = (p_last - p_prev).astype(np.float32)
-    seg_norm = np.sqrt(np.sum(d_seg * d_seg, axis=-1,
-                              dtype=np.float32)).astype(np.float32)
-    edge_dir = edges[np.minimum(edge_ids, E - 1), 2:4].astype(np.float32)
-    if not forward:
-        edge_dir = -edge_dir
-    d_last = np.where((seg_norm > 1e-6)[..., None],
-                      d_seg / np.maximum(seg_norm, np.float32(1e-6))[..., None],
-                      edge_dir)
-    steps = (i - last[..., None]).astype(np.float32)
-    extrap = (p_last[..., None, :]
-              + np.maximum(steps, np.float32(1.0))[..., None]
-              * d_last[..., None, :])
-    return np.where(valid[..., None], xy, extrap).astype(np.float32)
-
-
-def build_lane_tables(lg, S=None, K=128, KB=32) -> LaneTables:
-    """Lane-graph dict -> padded edge-adjacency tables (numpy).
-
-    :param K: forward walk length (edges); must cover ``cfg.horizon``
-        at ~1 m lane discretization.
-    :param KB: backward walk length: the backward polyline only feeds the
-        warp grid's ``cfg.NBB`` backward knots plus match slack."""
-    edges = np.asarray(lg["edges"], np.float32)
-    ixes = np.asarray(lg["edgeixes"], np.int64)
-    E = len(edges)
-    by_src = {}
-    for e, (v0, _v1) in enumerate(ixes):
-        by_src.setdefault(int(v0), []).append(e)
-    succ = [sorted(by_src.get(int(v1), [])) for _v0, v1 in ixes]
-    pred_map = {}
-    for e, (_v0, v1) in enumerate(ixes):
-        pred_map.setdefault(int(v1), []).append(e)
-    pred = [sorted(pred_map.get(int(v0), [])) for v0, _v1 in ixes]
-    if S is None:
-        S = max([1] + [len(s) for s in succ] + [len(p) for p in pred])
-    pad = lambda lst: [x[:S] + [E] * (S - len(x[:S])) for x in lst]
-    succ_np = np.asarray(pad(succ), np.int64)
-    pred_np = np.asarray(pad(pred), np.int64)
-    succ_deg = np.asarray([min(len(s), S) for s in succ], np.int64)
-    pred_deg = np.asarray([min(len(p), S) for p in pred], np.int64)
-    cf, ff, fef = _host_chain0(E, succ_np, succ_deg, ixes[:, 1], K)
-    cb, fb, feb = _host_chain0(E, pred_np, pred_deg, ixes[:, 0], KB)
-    ccf, dcf = _host_chainc(cf, ff, fef, succ_np, succ_deg, _BRANCH_CODES)
-    vxy_np = np.asarray(lg["xy"], np.float32)
-    eid = np.arange(E)
-    cxy_f = _host_extend_xy(ccf, edges, vxy_np,
-                            np.broadcast_to(eid[:, None], ccf.shape[:2]),
-                            True)
-    c0xy_f = _host_extend_xy(cf, edges, vxy_np, eid, True)
-    c0xy_b = _host_extend_xy(cb, edges, vxy_np, eid, False)
-    i32 = lambda a: np.asarray(a, np.int32)
-    return LaneTables(
-        edges=edges, emap=np.zeros((E,), np.int32),
-        src=i32(ixes[:, 0]), dst=i32(ixes[:, 1]),
-        succ=i32(succ_np), succ_deg=i32(succ_deg),
-        pred=i32(pred_np), pred_deg=i32(pred_deg), vxy=vxy_np,
-        chain0_f=i32(cf), fork_f=i32(ff), forke_f=i32(fef),
-        chain0_b=i32(cb), fork_b=i32(fb), forke_b=i32(feb),
-        chainc_f=i32(ccf), distc_f=dcf, chainxy_f=cxy_f,
-        chain0xy_f=c0xy_f, chain0xy_b=c0xy_b)
-
-
-def stack_lane_tables(tables_list):
-    """Concatenate per-map tables into ONE shared edge/vertex axis.
-
-    Edge/vertex ids get per-map offsets; ``emap`` records each edge's map
-    so matching can mask other maps. The walk chains stay correct
-    unmodified because adjacency never crosses maps."""
-    K1 = max(t.chain0_f.shape[1] for t in tables_list)
-    assert all(t.chain0_f.shape[1] == K1 for t in tables_list), \
-        "mixed chain walk lengths"
-    E_total = sum(t.edges.shape[0] for t in tables_list)
-    i32 = lambda a: np.asarray(a, np.int32)
-    parts = []
-    eo = vo = 0
-    for m, t in enumerate(tables_list):
-        e, v = t.edges.shape[0], t.vxy.shape[0]
-        # local sentinel e -> global sentinel E_total; real ids -> +eo
-        radj = lambda a: i32(np.where(a >= e, E_total, a + eo))
-        rvert = lambda a: i32(np.where(a < 0, a, a + vo))  # chain -1 stays
-        parts.append(t._replace(
-            emap=np.full((e,), m, np.int32),
-            src=i32(t.src + vo), dst=i32(t.dst + vo),
-            succ=radj(t.succ), pred=radj(t.pred),
-            chain0_f=rvert(t.chain0_f), forke_f=i32(t.forke_f + eo),
-            chain0_b=rvert(t.chain0_b), forke_b=i32(t.forke_b + eo),
-            chainc_f=rvert(t.chainc_f)))
-        eo += e
-        vo += v
-    S = max(p.succ.shape[1] for p in parts)
-
-    def pad_s(a):
-        return np.pad(a, ((0, 0), (0, S - a.shape[1])),
-                      constant_values=E_total)
-
-    parts = [p._replace(succ=pad_s(p.succ), pred=pad_s(p.pred))
-             for p in parts]
-    return LaneTables(*(np.concatenate([getattr(p, f) for p in parts])
-                        for f in LaneTables._fields))
 
 
 class StaticPlanCfg(NamedTuple):
@@ -344,13 +132,188 @@ class DeviceTables(NamedTuple):
     predafacs: torch.Tensor    # (NAF,) float32
 
     @classmethod
-    def from_host(cls, tab: LaneTables, cfg: "StaticPlanCfg", device):
-        arrays = {f: getattr(tab, f) for f in cls._fields[:6]}
-        arrays["emap"] = arrays["emap"].astype(np.int64)
+    def from_graphs(cls, lane_graphs, map_names, cfg: "StaticPlanCfg",
+                    device):
+        """The tables of the maps ``map_names``, built on ``device`` map
+        by map (:func:`_map_tables`) and stacked on one edge axis, with
+        each edge's map id in ``emap``: lane matching masks the other
+        maps' edges, so one table serves scenes on different maps (the
+        walks need no offsets: they hold polylines, and adjacency never
+        crosses maps)."""
+        parts = [_map_tables(lane_graphs[m], device) for m in map_names]
+        arrays = {f: torch.cat([p[f] for p in parts])
+                  for f in ("edges", "distc_f", "chainxy_f", "chain0xy_f",
+                            "chain0xy_b")}
+        arrays["emap"] = torch.cat([
+            torch.full((p["edges"].shape[0],), m, dtype=torch.int64,
+                       device=device) for m, p in enumerate(parts)])
         for f in cls._fields[6:]:
-            arrays[f] = np.asarray(getattr(cfg, f), np.float32)
-        return cls(**{f: torch.as_tensor(a, device=device)
-                      for f, a in arrays.items()})
+            arrays[f] = torch.as_tensor(
+                np.asarray(getattr(cfg, f), np.float32), device=device)
+        return cls(**arrays)
+
+
+# ---------------------------------------------------------------------------
+# lane tables, built on the device (torch copies of tpu_planner.py:85-439)
+# ---------------------------------------------------------------------------
+
+
+def _chain0(table, deg, endv, K):
+    """(E, K+1) branch-0 walk vertices (always successor 0 of
+    ``table``) + first fork step (K+1 = none) and the edge id there."""
+    E = table.shape[0]
+    dev = table.device
+    chain = torch.full((E, K + 1), -1, dtype=torch.int64, device=dev)
+    fork = torch.full((E,), K + 1, dtype=torch.int64, device=dev)
+    forke = torch.zeros(E, dtype=torch.int64, device=dev)
+    cur = torch.arange(E, device=dev)
+    alive = torch.ones(E, dtype=torch.bool, device=dev)
+    chain[:, 0] = endv[cur]
+    for j in range(K):
+        cc = torch.clamp_max(cur, E - 1)
+        d = torch.where(alive, deg[cc], 0)
+        at_fork = alive & (d > 1) & (fork > K)
+        fork = torch.where(at_fork, j, fork)
+        forke = torch.where(at_fork, cur, forke)
+        nxt = torch.where(d > 0, table[cc, 0], E)
+        alive = alive & (nxt < E)
+        cur = torch.where(alive, nxt, cur)
+        chain[:, j + 1] = torch.where(
+            alive, endv[torch.clamp_max(cur, E - 1)], -1)
+    return chain, fork, forke
+
+
+def _chainc(chain0, fork, forke, succ, deg, codes):
+    """(E, NC, K+1) branch-coded walks + (E, NC) distinctness: for
+    every edge and branch code (b1, b2), the walk that takes successor
+    ``b1`` at the first fork and ``b2`` at the next (reference expand_verts
+    :379-414 explores these chains at runtime)."""
+    E, K1 = chain0.shape
+    NONE = K1
+    e1 = torch.arange(E, device=chain0.device)
+
+    def seg_after_fork(e, b):
+        ec = torch.clamp_max(e, E - 1)
+        f = torch.where(e < E, fork[ec], NONE)
+        fe = torch.clamp_max(forke[ec], E - 1)
+        b_used = torch.minimum(torch.full_like(fe, b),
+                               torch.clamp_min(deg[fe] - 1, 0))
+        nxt = succ[fe, b_used]
+        return f, torch.where(f <= K1 - 1, nxt, E), b_used
+
+    out = torch.empty((E, len(codes), K1), dtype=chain0.dtype,
+                      device=chain0.device)
+    dist = torch.empty((E, len(codes)), dtype=torch.bool,
+                       device=chain0.device)
+    i = torch.arange(K1, device=chain0.device)[None, :]
+    for ci, (b1, b2) in enumerate(codes.tolist()):
+        f1, e2, b1_used = seg_after_fork(e1, b1)
+        f2, e3, b2_used = seg_after_fork(e2, b2)
+        j2 = i - f1[:, None] - 1
+        j3 = j2 - f2[:, None] - 1
+        v = chain0[e1]
+        use2 = (j2 >= 0) & (e2 < E)[:, None]
+        c2 = chain0[torch.clamp_max(e2, E - 1)]
+        v = torch.where(use2, torch.gather(c2, 1, j2.clamp(0, K1 - 1)), v)
+        use3 = (j3 >= 0) & (e3 < E)[:, None] & use2
+        c3 = chain0[torch.clamp_max(e3, E - 1)]
+        v = torch.where(use3, torch.gather(c3, 1, j3.clamp(0, K1 - 1)), v)
+        out[:, ci] = v
+        dist[:, ci] = (((b1_used > 0) & (f1 <= K1 - 1))
+                       | ((b2_used > 0) & (e2 < E) & (f2 <= K1 - 1)))
+    return out, dist
+
+
+def _extend_xy(chain_v, edges, vxy, edge_ids, forward):
+    """Vertex-id chains -> (..., K+1, 2) polylines with dead ends
+    extrapolated along the last valid direction (reference _extend
+    :416-431). A walk with a SINGLE valid vertex takes the edge's own
+    heading (float32 throughout, the JAX package's operations in its
+    order).
+
+    :param chain_v: (..., K+1) int vertex ids, -1 = invalid
+    :param edge_ids: (...,) int edge id per chain (for the fallback dir)
+    """
+    E, V = edges.shape[0], vxy.shape[0]
+    K1 = chain_v.shape[-1]
+    i = torch.arange(K1, device=chain_v.device)
+    valid = chain_v >= 0
+    xy = vxy[chain_v.clamp(0, V - 1)]
+    last = torch.where(valid, i, 0).amax(-1)                    # (...,)
+
+    def at(k):
+        idx = k[..., None, None].expand(*k.shape, 1, 2)
+        return torch.gather(xy, -2, idx)[..., 0, :]
+
+    p_last = at(last)
+    p_prev = at(torch.clamp_min(last - 1, 0))
+    d_seg = p_last - p_prev
+    seg_norm = torch.sqrt((d_seg * d_seg).sum(-1))
+    edge_dir = edges[torch.clamp_max(edge_ids, E - 1), 2:4]
+    if not forward:
+        edge_dir = -edge_dir
+    d_last = torch.where((seg_norm > 1e-6)[..., None],
+                         d_seg / torch.clamp_min(seg_norm, 1e-6)[..., None],
+                         edge_dir)
+    steps = (i - last[..., None]).to(torch.float32)
+    extrap = (p_last[..., None, :]
+              + torch.clamp_min(steps, 1.0)[..., None]
+              * d_last[..., None, :])
+    return torch.where(valid[..., None], xy, extrap)
+
+
+def _adjacency(first, other):
+    """For every edge e, where the edges whose ``first`` vertex is e's
+    ``other`` one start in ``order`` (the edges sorted by that vertex,
+    then by id), and how many there are."""
+    order = torch.sort(first, stable=True).indices
+    lo = torch.searchsorted(first[order], other, right=False)
+    deg = torch.searchsorted(first[order], other, right=True) - lo
+    return order, lo, deg
+
+
+def _padded(order, lo, deg, S):
+    """(E, S) of :func:`_adjacency`'s edges, padded with E."""
+    E = order.shape[0]
+    j = torch.arange(S, device=order.device)
+    pos = torch.clamp_max(lo[:, None] + j, E - 1)
+    return torch.where(j < deg[:, None], order[pos], E)
+
+
+def _map_tables(lg, device, K=128, KB=32):
+    """One map's share of :class:`DeviceTables`, built on ``device``:
+    the fields of the JAX package's ``build_lane_tables`` that the device
+    functions read, each equal to its bit for bit (the same integer walks;
+    float32 subtractions, products, sums of two, divisions and square
+    roots, each correctly rounded on the CPU and on the card).
+
+    :param K: forward walk length (edges); must cover ``cfg.horizon``
+        at ~1 m lane discretization.
+    :param KB: backward walk length: the backward polyline only feeds the
+        warp grid's ``cfg.NBB`` backward knots plus match slack."""
+    edges = torch.as_tensor(np.asarray(lg["edges"]), device=device
+                            ).to(torch.float32)
+    ixes = torch.as_tensor(np.asarray(lg["edgeixes"], np.int64),
+                           device=device)
+    vxy = torch.as_tensor(np.asarray(lg["xy"]), device=device
+                          ).to(torch.float32)
+    E = edges.shape[0]
+    src, dst = ixes[:, 0].contiguous(), ixes[:, 1].contiguous()
+    fwd, bwd = _adjacency(src, dst), _adjacency(dst, src)
+    S = max(1, int(fwd[2].max()), int(bwd[2].max()))
+    succ, succ_deg = _padded(*fwd, S), fwd[2]
+    pred, pred_deg = _padded(*bwd, S), bwd[2]
+    cf, ff, fef = _chain0(succ, succ_deg, dst, K)
+    cb, _, _ = _chain0(pred, pred_deg, src, KB)
+    ccf, dcf = _chainc(cf, ff, fef, succ, succ_deg,
+                       torch.as_tensor(_BRANCH_CODES))
+    eid = torch.arange(E, device=device)
+    return {"edges": edges, "distc_f": dcf,
+            "chainxy_f": _extend_xy(ccf, edges, vxy,
+                                    eid[:, None].expand(ccf.shape[:2]),
+                                    True),
+            "chain0xy_f": _extend_xy(cf, edges, vxy, eid, True),
+            "chain0xy_b": _extend_xy(cb, edges, vxy, eid, False)}
 
 
 # ---------------------------------------------------------------------------
@@ -396,6 +359,7 @@ def _match_edges(x, y, h, mid, tab: DeviceTables, cfg: StaticPlanCfg):
     pose's map id: edges of other maps in the concatenated table never
     match."""
     e = tab.edges
+    COUNTS["match_pairs"] += x.shape[0] * e.shape[0]
     cdist = (1.0 - e[:, 2] * torch.cos(h)[:, None]
              - e[:, 3] * torch.sin(h)[:, None])
     dx = x[:, None] - e[:, 0]
@@ -755,6 +719,8 @@ def plan_rollout(tab: DeviceTables, cfg: StaticPlanCfg, init_state, lw,
     """
     B, NA, TO = other_obs.shape[:3]
     dev = init_state.device
+    T_all = Tsteps + 1
+    COUNTS["calls"] += 1
     # clamp initial speeds to >= 0: the static warp grid has no full
     # backward extent; ego speed then STAYS >= 0 (PARITY.md §16)
     init_state = torch.cat([init_state[..., :3],
@@ -771,54 +737,58 @@ def plan_rollout(tab: DeviceTables, cfg: StaticPlanCfg, init_state, lw,
     horizon = ts[torch.clamp_min(first_nan - 1, 0)]   # (B, NA)
     obs = torch.where(nanrow[..., None], 0.0, obs)
 
-    # --- others' states at EVERY plan time, batched (ego-independent) -----
-    # other agents move along their observations (reference update_wstate
-    # :601-621): position/heading interpolated, speed the finite difference
-    # from the previous plan step
-    t_grid = cfg.dt * torch.arange(1, Tsteps + 1, dtype=torch.float32,
-                                   device=dev)
-    o = _interp_cols(t_grid, ts, obs).transpose(1, 2)  # (B, Tsteps, NA, 4)
-    pos_prev = torch.cat([init_state[:, None, :, :2], o[:, :-1, :, :2]], 1)
-    ohd = torch.atan2(o[..., 3], o[..., 2])
-    dxy = o[..., :2] - pos_prev
-    osp = torch.hypot(dxy[..., 0], dxy[..., 1]) / cfg.dt
-    osgn = torch.where(dxy[..., 0] * o[..., 2] + dxy[..., 1] * o[..., 3] >= 0,
-                       1.0, -1.0)
-    # reversing agents (osgn < 0) are predicted as STOPPING (speed clamped
-    # to 0) instead of reversing: the static warp grid only covers
-    # ~NBB*LANE_DS backward (PARITY.md §16)
-    states_later = torch.stack([o[..., 0], o[..., 1], ohd,
-                                torch.clamp_min(osgn * osp, 0.0)], -1)
-    state_all = torch.cat([init_state[:, None], states_later], 1)
-    alive_later = alive0[:, None] & (t_grid[:, None]
-                                     <= horizon[:, None] + 1e-6)
-    alive_all = torch.cat([alive0[:, None], alive_later], 1)  # (B, T, NA)
-    T_all = Tsteps + 1
+    with span("planner.others"):
+        # --- others' states at EVERY plan time, batched (ego-independent)
+        # other agents move along their observations (reference
+        # update_wstate :601-621): position/heading interpolated, speed the
+        # finite difference from the previous plan step
+        t_grid = cfg.dt * torch.arange(1, Tsteps + 1, dtype=torch.float32,
+                                       device=dev)
+        o = _interp_cols(t_grid, ts, obs).transpose(1, 2)  # (B, T, NA, 4)
+        pos_prev = torch.cat([init_state[:, None, :, :2], o[:, :-1, :, :2]],
+                             1)
+        ohd = torch.atan2(o[..., 3], o[..., 2])
+        dxy = o[..., :2] - pos_prev
+        osp = torch.hypot(dxy[..., 0], dxy[..., 1]) / cfg.dt
+        osgn = torch.where(
+            dxy[..., 0] * o[..., 2] + dxy[..., 1] * o[..., 3] >= 0, 1.0, -1.0)
+        # reversing agents (osgn < 0) are predicted as STOPPING (speed
+        # clamped to 0) instead of reversing: the static warp grid only
+        # covers ~NBB*LANE_DS backward (PARITY.md §16)
+        states_later = torch.stack([o[..., 0], o[..., 1], ohd,
+                                    torch.clamp_min(osgn * osp, 0.0)], -1)
+        state_all = torch.cat([init_state[:, None], states_later], 1)
+        alive_later = alive0[:, None] & (t_grid[:, None]
+                                         <= horizon[:, None] + 1e-6)
+        alive_all = torch.cat([alive0[:, None], alive_later], 1)  # B,T,NA
 
-    ocirc = ovalid = None
-    if NA > 1:
-        # ego row excluded: its fan is never scored
-        NO = NA - 1
-        ocirc, ovalid = _others_step_data(
-            state_all[:, :, 1:].reshape(B * T_all, NO, 4),
-            alive_all[:, :, 1:].reshape(B * T_all, NO),
-            lw[:, None, 1:].expand(B, T_all, NO, 2).reshape(-1, NO, 2),
-            mid[:, None].expand(B, T_all).reshape(-1), tab, cfg)
-        ocirc = ocirc.reshape(B, T_all, cfg.nsteps + 1, 1, -1, 3)
-        ocirc = [ocirc[..., c].contiguous() for c in range(3)]
-        ovalid = ovalid.reshape(B, T_all, -1)
+        ocirc = ovalid = None
+        if NA > 1:
+            # ego row excluded: its fan is never scored
+            NO = NA - 1
+            ocirc, ovalid = _others_step_data(
+                state_all[:, :, 1:].reshape(B * T_all, NO, 4),
+                alive_all[:, :, 1:].reshape(B * T_all, NO),
+                lw[:, None, 1:].expand(B, T_all, NO, 2).reshape(-1, NO,
+                                                                  2),
+                mid[:, None].expand(B, T_all).reshape(-1), tab, cfg)
+            ocirc = ocirc.reshape(B, T_all, cfg.nsteps + 1, 1, -1, 3)
+            ocirc = [ocirc[..., c].contiguous() for c in range(3)]
+            ovalid = ovalid.reshape(B, T_all, -1)
 
     # first action planned from t=0 (reference records the first planned
     # control before the loop, :238-246), then one per dt step
     ego = init_state[:, 0]
     outs = []
-    for j in range(T_all):
-        px, py, ph, stgt = _plan_step_ego(
-            ego, lw[:, 0], state_all[:, j, 1:, :2],
-            None if ocirc is None else [c[:, j] for c in ocirc],
-            None if ovalid is None else ovalid[:, j], mid, tab, cfg)
-        ego = torch.stack([px, py, ph, stgt], -1)
-        outs.append(torch.stack([px, py, torch.cos(ph), torch.sin(ph)], -1))
+    with span("planner.ego"):
+        for j in range(T_all):
+            px, py, ph, stgt = _plan_step_ego(
+                ego, lw[:, 0], state_all[:, j, 1:, :2],
+                None if ocirc is None else [c[:, j] for c in ocirc],
+                None if ovalid is None else ovalid[:, j], mid, tab, cfg)
+            ego = torch.stack([px, py, ph, stgt], -1)
+            outs.append(torch.stack([px, py, torch.cos(ph), torch.sin(ph)],
+                                    -1))
     return torch.stack(outs, 1)
 
 
@@ -844,9 +814,8 @@ class DeviceRulePlanner:
         self.map_names = list(map_names)
         base = PlannerConfig(**cfg) if isinstance(cfg, dict) else cfg
         self.cfg = StaticPlanCfg.from_planner_config(base)
-        self.tables = DeviceTables.from_host(stack_lane_tables(
-            [build_lane_tables(lane_graphs[m]) for m in self.map_names]),
-            self.cfg, self.device)
+        self.tables = DeviceTables.from_graphs(lane_graphs, self.map_names,
+                                               self.cfg, self.device)
         self.state = None
 
     def _on_device(self, x, dtype=torch.float32):

@@ -1,7 +1,10 @@
 """The port's device planner (``planners/device_planner.py``) on the CPU.
 
-- ``build_lane_tables`` / ``stack_lane_tables`` equal strive_tpu's, field
-  by field, dtypes included;
+- the lane tables that ``DeviceTables.from_graphs`` builds equal
+  strive_tpu's ``build_lane_tables`` / ``stack_lane_tables``, field by
+  field, bit for bit and dtypes included (``emap`` in the port's int64), on
+  the graphs below and on the closed-loop benchmark cell's connector grid
+  (a turn connector each way at every crossing) at a small extent;
 - the cases of tests/test_tpu_planner.py, held against the port's host
   planner at that file's decision-parity tolerances: 0.5 m and 5 degrees
   (1.0 m and 8 degrees on the ring), the sweep's median and max;
@@ -24,12 +27,16 @@
   with repeats, and argmin ties resolving to the first edge.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
 
 import strive_tpu.maps.lanegraph as jlg
 import strive_tpu.planners.tpu_planner as jtp
+from benchmark.harness import BENCH, load_json
+from benchmark.inputs import lanes
 from strive_tpu_torch.maps import lanegraph as tlg
 from strive_tpu_torch.normalize import state_normalizer_for
 from strive_tpu_torch.planners import (PLANNER_CONFIGS, PlannerConfig,
@@ -54,25 +61,59 @@ def lg(graphs):
     return graphs["grid"]
 
 
+def _cfg():
+    return dp.StaticPlanCfg.from_planner_config(PlannerConfig(**CFG))
+
+
+def _tables(lg):
+    return dp.DeviceTables.from_graphs({"m": lg}, ["m"], _cfg(), "cpu")
+
+
+def _connector_grid():
+    """``benchmark/inputs/lanes.py``'s graph on one 256 m map at 64 m
+    spacing: four lanes a band, a turn connector each way at every
+    crossing, a vertex every metre."""
+    st = copy.deepcopy(load_json(BENCH / "configs"
+                                 / "strive_adv_rule_nusc.json")["store"])
+    st["extents_m"] = {"boston-seaport": [256.0, 256.0]}
+    st["maps"] = ["boston-seaport"]
+    st["spacing_m"] = 64.0
+    return lanes.graph(st, "boston-seaport")
+
+
+def _graph_pair(name):
+    """The graph ``name`` as each package builds it (the connector grid:
+    one dict for both)."""
+    if name == "connectors":
+        g = _connector_grid()
+        return g, g
+    return GRAPHS[name](tlg), GRAPHS[name](jlg)
+
+
 def _assert_tables_equal(got, want):
-    for f in dp.LaneTables._fields:
-        a, b = getattr(got, f), np.asarray(getattr(want, f))
+    """Each field of ``DeviceTables`` that holds lane tables equal to
+    strive_tpu's ``LaneTables`` field of that name."""
+    for f in dp.DeviceTables._fields[:6]:
+        a, b = getattr(got, f).numpy(), np.asarray(getattr(want, f))
+        if f == "emap":
+            b = b.astype(np.int64)
         assert a.dtype == b.dtype and a.shape == b.shape, f
         np.testing.assert_array_equal(a, b, err_msg=f)
 
 
-@pytest.mark.parametrize("graph", list(GRAPHS))
+@pytest.mark.parametrize("graph", list(GRAPHS) + ["connectors"])
 def test_build_lane_tables_equal(graph):
-    _assert_tables_equal(dp.build_lane_tables(GRAPHS[graph](tlg)),
-                         jtp.build_lane_tables(GRAPHS[graph](jlg)))
+    tg, jg = _graph_pair(graph)
+    _assert_tables_equal(_tables(tg), jtp.build_lane_tables(jg))
 
 
 def test_stack_lane_tables_equal():
     names = ["grid", "forks", "ring", "forks"]
+    pairs = {n: _graph_pair(n) for n in set(names)}
     _assert_tables_equal(
-        dp.stack_lane_tables([dp.build_lane_tables(GRAPHS[n](tlg))
-                              for n in names]),
-        jtp.stack_lane_tables([jtp.build_lane_tables(GRAPHS[n](jlg))
+        dp.DeviceTables.from_graphs({n: p[0] for n, p in pairs.items()},
+                                    names, _cfg(), "cpu"),
+        jtp.stack_lane_tables([jtp.build_lane_tables(pairs[n][1])
                                for n in names]))
 
 
@@ -224,9 +265,8 @@ def test_reversing_other_predicted_stopping(lg):
     """A reversing other agent's fan stays near its observed position: at
     speed 0 (the clamp of PARITY.md §16) and at a raw negative speed, whose
     fan distances clamp to the route-closest point."""
-    cfg = dp.StaticPlanCfg.from_planner_config(PlannerConfig(**CFG))
-    tab = dp.DeviceTables.from_host(
-        dp.stack_lane_tables([dp.build_lane_tables(lg)]), cfg, "cpu")
+    cfg = _cfg()
+    tab = _tables(lg)
     pos = np.array([100.0, 128.0])
     for s in (0.0, -5.0):
         ocirc, ovalid = dp._others_step_data(
@@ -382,9 +422,8 @@ def test_argmin_ties_pick_the_first_edge():
     g = tlg._GraphBuilder()
     g.add_chain([(x, 0.0) for x in xs])   # edges 0..19 at y = 0
     g.add_chain([(x, 2.0) for x in xs])   # edges 20..39 at y = 2
-    cfg = dp.StaticPlanCfg.from_planner_config(PlannerConfig(**CFG))
-    tab = dp.DeviceTables.from_host(
-        dp.stack_lane_tables([dp.build_lane_tables(g.build())]), cfg, "cpu")
+    cfg = _cfg()
+    tab = _tables(g.build())
     x, y, h = (torch.tensor([v]) for v in (11.0, 1.0, 0.0))
     mid = torch.zeros(1, dtype=torch.int64)
     ok, cx, cy, dist = dp._match_edges(x, y, h, mid, tab, cfg)
