@@ -57,7 +57,9 @@ port's bench harnesses and its yield and refresh studies (phase 15). Phases:
       tolerance (0.5 m, 5 degrees) and against the device planner on the
       CPU from the same inputs within 1e-3 m and 1e-3 rad; a scene past
       1e-3 is printed as a decision that flipped on float error and held
-      at 0.5 m / 5 degrees;
+      at 0.5 m / 5 degrees; then the card planner's next two calls (its
+      CUDA graph captured and replayed, then replayed) equal to its first,
+      eager, call bit for bit;
    b. phase 5's small run in closed loop with the device planner (a 64 m
       lane graph over its 256 px store, 3 iterations): card against CPU,
       loss history rtol 1e-3, final latents atol 1e-4;
@@ -69,7 +71,8 @@ port's bench harnesses and its yield and refresh studies (phase 15). Phases:
       wall time in a second run of ``CL_FENCED_ITERS`` (5) iterations with
       each call fenced by ``torch.cuda.synchronize()``;
    d. the same on the device backend, plus the planner's kernels and
-      device busy ms per call (``torch.profiler`` over one call);
+      device busy ms per call (``torch.profiler`` over one call, which
+      must be a replay of the planner's graph);
 9. (run after 6b, before 7) the scenario-generation pipeline through the
    port's entry point, ``strive_tpu_torch.scripts.adv_scenario_gen.main``:
    a. K1 at prior sampling's shape (1 scene x 20 samples x 16 agents = 320
@@ -1057,9 +1060,12 @@ def compare_futures(np, state_norm, got, want, tol_m, tol_rad, label):
 
 def planner_profile(torch, fn, pred):
     """Kernels, memory copies and device busy ms on the card in one call of
-    ``fn`` (``torch.profiler``)."""
+    ``fn`` (``torch.profiler``), and the device planner's replays in it."""
     from torch.profiler import ProfilerActivity, profile
 
+    from strive_tpu_torch.planners import device_planner as dp
+
+    replays = dp.COUNTS["replays"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn(pred)
@@ -1069,7 +1075,8 @@ def planner_profile(torch, fn, pred):
     return {"planner_launches_per_call": sum(e.count for e in ev) - copies,
             "planner_copies_per_call": copies,
             "planner_device_busy_ms_per_call":
-                sum(e.self_device_time_total for e in ev) / 1e3}
+                sum(e.self_device_time_total for e in ev) / 1e3,
+            "planner_replays_in_call": dp.COUNTS["replays"] - replays}
 
 
 def closed_loop_phase(torch, np, tm, model, scene, store, norm, counters):
@@ -1080,6 +1087,7 @@ def closed_loop_phase(torch, np, tm, model, scene, store, norm, counters):
     from strive_tpu_torch.normalize import (att_normalizer_for,
                                             state_normalizer_for)
     from strive_tpu_torch.optim.adv import run_adv_gen_optim
+    from strive_tpu_torch.planners import device_planner as dp
     from strive_tpu_torch.scene import SceneBatch
     from strive_tpu_torch.scripts import bench_closed_loop as bcl
 
@@ -1116,6 +1124,17 @@ def closed_loop_phase(torch, np, tm, model, scene, store, norm, counters):
         "a. device planner on the card vs on the CPU")
     log(f"a. planners on the scenes' futures: card vs host "
         f"{out['card_vs_host']}, card vs CPU {out['card_vs_cpu']}")
+    replays = dp.COUNTS["replays"]
+    for i in (2, 3):  # the graph captured and replayed, then replayed
+        if not torch.equal(card_fn(fut), on_card):
+            raise AssertionError(f"a. the card planner's call {i} (a replay "
+                                 "of its CUDA graph) differs from its first")
+    out["card_replays_equal"] = dp.COUNTS["replays"] - replays
+    if out["card_replays_equal"] != 2:
+        raise AssertionError(f"a. {out['card_replays_equal']} of the card "
+                             "planner's calls 2-3 replayed, expected 2")
+    log("a. the card planner's calls 2-3, replays of its CUDA graph, equal "
+        "its first bit for bit")
 
     # --- b. a small closed loop, card against CPU -------------------------
     small_lg = bcl.lanegraph(extent_m=64.0, spacing_m=16.0)
@@ -1194,6 +1213,9 @@ def closed_loop_phase(torch, np, tm, model, scene, store, norm, counters):
                  "fenced_iters_per_sec": CL_FENCED_ITERS / fenced_wall}
         if backend == "device":
             entry.update(planner_profile(torch, card_fn, result))
+            if entry["planner_replays_in_call"] != 1:
+                raise AssertionError("the profiled device planner call did "
+                                     "not replay its CUDA graph")
         out[backend] = entry
         log(f"{backend} closed loop: {CL_ITERS} iterations, losses "
             f"{losses[0]:.4f} -> {losses[-1]:.4f}, {entry}")

@@ -23,6 +23,10 @@ Layout on the card:
   step (every other agent's splines, prediction fan and collision circles)
   runs as one batch over all plan steps; the ego's own plan is a Python
   loop over the plan steps;
+- on a card, every call after the first of its shapes replays one CUDA
+  graph of :func:`plan_rollout` (:class:`DeviceRulePlanner`): the same
+  kernels, launched by one graph launch in place of ~12,500 from Python
+  (nothing in a rollout reads a value back to the host);
 - interpolation finds its interval with ``torch.searchsorted`` and reads
   the knots with gathers. The JAX planner's one-hot matmuls and dense
   compare-sums only avoid TPU gathers; they give the same interval
@@ -46,9 +50,10 @@ from .hardcode import LANE_DS, LANE_SIG, SBUFFER, PlannerConfig
 BIG = 1e9
 
 # the planner's work, counted on the host where it is issued: rollouts,
-# and the pose-edge pairs that ``_match_edges`` computes over the stacked
-# tables
-COUNTS = {"calls": 0, "match_pairs": 0}
+# the pose-edge pairs that ``_match_edges`` computes over the stacked
+# tables, and the rollouts served by replaying a captured CUDA graph
+# (``DeviceRulePlanner``; a capture is not a rollout)
+COUNTS = {"calls": 0, "match_pairs": 0, "replays": 0}
 
 # Branch codes (b1, b2): successor index taken at the first/second fork of
 # a forward walk (reference expand_verts :379-414; PARITY.md §12 bounds
@@ -797,6 +802,47 @@ def plan_rollout(tab: DeviceTables, cfg: StaticPlanCfg, init_state, lw,
 # ---------------------------------------------------------------------------
 
 
+def _call(fn, tab, cfg, args, Tsteps):
+    """``fn`` (:func:`plan_rollout` or what stands in its name) on ``args``
+    = (init_state, lw, alive0, other_obs, obs_t, mid)."""
+    init_state, lw, alive0, other_obs, obs_t, mid = args
+    return fn(tab, cfg, init_state, lw, alive0, other_obs, obs_t, Tsteps,
+              mid)
+
+
+class _CapturedRollout:
+    """One call of a rollout function captured as a CUDA graph on the
+    current device: its own input buffers and output, and the pose-edge
+    pairs that the captured call counted. Replaying reads the lane tables
+    by the addresses they had at capture, so it lives no longer than
+    their planner."""
+
+    def __init__(self, fn, tab, cfg, args, Tsteps):
+        self.inputs = [a.clone() for a in args]
+        before = dict(COUNTS)
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            # ``torch.cuda.graph`` synchronizes and returns the allocator's
+            # cached blocks (the eager call's temporaries) to the card
+            # before it captures: once a capture, never a call
+            with torch.cuda.graph(self.graph):
+                self.out = _call(fn, tab, cfg, self.inputs, Tsteps)
+        finally:
+            self.pairs = COUNTS["match_pairs"] - before["match_pairs"]
+            COUNTS.update(before)  # a capture is not a rollout
+
+    def __call__(self, args):
+        """Replay on ``args``; the output is overwritten by the next
+        replay, so callers read it before they call again."""
+        for buf, a in zip(self.inputs, args):
+            buf.copy_(a)
+        self.graph.replay()
+        COUNTS["calls"] += 1
+        COUNTS["match_pairs"] += self.pairs
+        COUNTS["replays"] += 1
+        return self.out
+
+
 class DeviceRulePlanner:
     """Rule planner over a batch of scenes on one device (duck-types the
     JAX package's ``TpuRulePlanner``).
@@ -805,6 +851,16 @@ class DeviceRulePlanner:
     at once; ``make_fn`` returns the one-argument closed-loop planner
     function of ``optim.adv.run_adv_gen_optim``. The lane tables go to
     ``device`` once, here; inputs on another device raise.
+
+    On a CUDA device the planner keeps one CUDA graph of the rollout, keyed
+    by the function that ``plan_rollout`` names when it is called, the
+    plan steps and the inputs' shapes and dtypes (B, NA, TO). A key's first
+    call runs eagerly on a side stream (the warm-up a capture needs), its
+    second captures the rollout and replays it, and later calls replay,
+    each after copying its inputs (``reset``'s and the call's) into the
+    graph's buffers; a new key drops the graph and its memory pool and
+    starts again. What a call returns is always a new tensor. On the CPU
+    every call runs eagerly.
     """
 
     def __init__(self, lane_graphs, map_names, cfg, device="cuda"):
@@ -817,6 +873,8 @@ class DeviceRulePlanner:
         self.tables = DeviceTables.from_graphs(lane_graphs, self.map_names,
                                                self.cfg, self.device)
         self.state = None
+        self._key = None     # the last CUDA call's key
+        self._graph = None   # its _CapturedRollout, from its second call
 
     def _on_device(self, x, dtype=torch.float32):
         if isinstance(x, torch.Tensor) and x.device != self.device:
@@ -837,15 +895,40 @@ class DeviceRulePlanner:
             "map_idx": self._on_device(map_idx, torch.int64),
         }
 
+    def _plan(self, args, Tsteps):
+        """:func:`plan_rollout` on ``args`` (see :func:`_call`): eager on
+        the CPU, through the planner's CUDA graph on a card (class doc)."""
+        fn = plan_rollout  # as the module names it now
+        if self.device.type != "cuda":
+            return _call(fn, self.tables, self.cfg, args, Tsteps)
+        key = (fn, Tsteps) + tuple((a.shape, a.dtype) for a in args)
+        with torch.cuda.device(self.device):
+            if key != self._key:
+                self._key, self._graph = key, None
+                cur = torch.cuda.current_stream()
+                side = torch.cuda.Stream()
+                side.wait_stream(cur)
+                with torch.cuda.stream(side):
+                    out = _call(fn, self.tables, self.cfg, args, Tsteps)
+                cur.wait_stream(side)
+                out.record_stream(cur)
+                return out
+            if self._graph is None:
+                self._graph = _CapturedRollout(fn, self.tables, self.cfg,
+                                               args, Tsteps)
+            return self._graph(args)
+
     @torch.no_grad()
     def _rollout(self, other_obs, obs_t, planner_t, t_end):
         assert self.state is not None, "call reset() first"
         cfg = self.cfg
         Tsteps = int(round(t_end / cfg.dt))
         st = self.state
-        out = plan_rollout(self.tables, cfg, st["init"], st["lw"], st["mask"],
-                           other_obs, obs_t, Tsteps, st["map_idx"])
+        out = self._plan((st["init"], st["lw"], st["mask"], other_obs, obs_t,
+                          st["map_idx"]), Tsteps)
         out_t = linspace(cfg.dt, cfg.dt * Tsteps, Tsteps + 1, self.device)
+        # a new tensor: ``out`` may be the graph's, which the next replay
+        # overwrites
         return _interp_cols(planner_t, out_t, out)
 
     def rollout_batch(self, other_obs, obs_t, planner_t):

@@ -12,17 +12,28 @@ at an eighth of their extents, lanes every 64 m.
   bit-identical with and without the profiler.
 - ``device_planner.COUNTS``: a call a refresh and one for the final
   decode, and the pose-edge pairs of the lane match: every agent's pose
-  at every one of a call's 31 plan steps against every stacked edge.
+  at every one of a call's 31 plan steps against every stacked edge; on
+  the CPU no call replays a CUDA graph.
+- ``plan_rollout`` can be captured in a CUDA graph: one call at the
+  cell's scene layout runs no operation that reads a value to the host,
+  and makes every tensor on its inputs' device (on the CPU and on
+  ``meta``, where no value exists to read).
+- The reader ``planner_replay_share.closed`` reads ``replays`` over
+  ``calls``, and nothing without the counter.
 """
 
 import math
+from types import SimpleNamespace
 
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from benchmark.drivers import closed
 from benchmark.harness import Run
+from benchmark.run import load_metric
 from benchmark.planner_faults import FAULTS, fault
 from benchmark.tests import tiny
 from strive_tpu_torch.planners import device_planner as dp
@@ -146,3 +157,76 @@ def test_match_pair_counts(program):
     E = {m: len(st["lanes"][m]["edges"]) for m in st["lanes"]}
     assert got["calls"] == calls
     assert got["match_pairs"] == calls * steps * B * NA * sum(E.values())
+
+
+def test_cpu_planner_takes_no_graph(program):
+    before = dict(dp.COUNTS)
+    _one_batch(program, iters=3)
+    got = {k: v - before[k] for k, v in dp.COUNTS.items()}
+    assert got["calls"] == 4 and got["replays"] == 0
+    assert program.state["planner"]._graph is None
+
+
+# operations that read a tensor's value to the host: a CUDA graph cannot
+# capture them (the host would read the capture's, not the replay's)
+HOST_READS = {"_local_scalar_dense", "item", "nonzero", "masked_select",
+              "unique", "_unique", "_unique2", "unique_consecutive",
+              "unique_dim", "equal", "is_nonzero", "allclose"}
+
+
+class _Watched(TorchDispatchMode):
+    """The operations dispatched inside, by name, and the devices of the
+    tensors they make."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops, self.devices = set(), set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.ops.add(func.overloadpacket.__name__)
+        self.devices.update(t.device for t in tree_leaves(out)
+                            if isinstance(t, torch.Tensor))
+        return out
+
+
+def _rollout_args(program, monkeypatch):
+    """``plan_rollout``'s arguments at a batch's first planner call, as
+    ``closed._planner_fn`` makes it."""
+    got, orig = [], dp.plan_rollout
+
+    def kept(*a):
+        got.append(a)
+        return orig(*a)
+
+    monkeypatch.setattr(dp, "plan_rollout", kept)
+    scene = program.state["batches"][0]
+    closed._planner_fn(program, scene)(scene.future_gt[..., :4])
+    monkeypatch.undo()
+    return got[0]
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_plan_rollout_is_capture_safe(program, monkeypatch, device):
+    tab, cfg, *args = _rollout_args(program, monkeypatch)
+    to = lambda x: x.to(device) if isinstance(x, torch.Tensor) else x
+    tab, args = dp.DeviceTables(*map(to, tab)), [to(a) for a in args]
+    with _Watched() as w:
+        out = dp.plan_rollout(tab, cfg, *args)
+    assert out.shape == (program.cfg["batch_size"], 31, 4)
+    assert not w.ops & HOST_READS, w.ops & HOST_READS
+    assert w.devices == {torch.device(device)}
+
+
+def test_replay_share_reader(monkeypatch):
+    read = load_metric("planner_replay_share.closed").read
+    traced = SimpleNamespace(profile={})
+    monkeypatch.setattr(dp, "COUNTS", {"calls": 21, "match_pairs": 7})
+    assert read(traced) is None
+    monkeypatch.setattr(dp, "COUNTS", {"calls": 21, "match_pairs": 7,
+                                       "replays": 20})
+    assert read(traced) == 20 / 21
+    assert read(SimpleNamespace(profile=None)) is None
+    monkeypatch.setattr(dp, "COUNTS", {"calls": 0, "match_pairs": 0,
+                                       "replays": 0})
+    assert read(traced) is None
