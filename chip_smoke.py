@@ -52,7 +52,7 @@ the order they run (the numbers are the order they were added in):
 6. the main path: embed + 20 Adam iterations with bench.py's weights, lr
    0.05, feasibility time 2: finite losses, trajectories and latents, and
    the launch counters risen by exactly 1 + 12 x 20 + 12 crops and 20 + 1
-   footprints, no window or bisect kernel;
+   footprints, no window, bisect or lane-match kernel;
 6b. the closed loop ('hardcode' planner, re-rolled every iteration), on
    the same model, store and scenes, with ``synthetic_lanegraph(512 m,
    spacing 64 m)`` on both maps and the 'default' planner config:
@@ -62,16 +62,27 @@ the order they run (the numbers are the order they were added in):
       CPU from the same inputs within 1e-3 m and 1e-3 rad; a scene past
       1e-3 is printed as a decision that flipped on float error and held
       at 0.5 m / 5 degrees; the card planner's calls 2 and 3, replays of
-      its CUDA graph, equal to its first bit for bit;
+      its CUDA graph, equal to its first bit for bit; K6 ``lane_match``
+      at the poses the card planner's first call matched (the others at
+      every plan time, B x 31 x (NA - 1) with MC 3, then B egos a plan
+      step with MC 1, 31 steps): equal to its plain version
+      (``_cluster_reps(*_match_edges(...))``) on the same card tensors,
+      ids and flags bit for bit; its record at the others' call there and
+      at ``adv_closed_b4``'s shape (the cell's four-map lane graph of
+      ``benchmark/inputs/lanes.py``, 375,976 edges, and 465 poses a map,
+      the others of one of its planner calls; equal there too, MC 3 and
+      1): its ms beside its plain version's and its bound, worked out
+      from the pairs of a pose and an edge of its own map;
    b. phase 5's small run in closed loop with the device planner (a 64 m
       lane graph over its 256 px store, 3 iterations): card against CPU,
       loss history rtol 1e-3, final latents atol 1e-4;
    c. ``CL_ITERS`` (10) full-width iterations on the host backend: finite
       losses, trajectories and latents, the counters risen by exactly 1 +
-      12 x 10 + 12 crops and 10 + 1 footprints (no window or bisect
-      kernel);
+      12 x 10 + 12 crops and 10 + 1 footprints (no window, bisect or
+      lane-match kernel);
    d. the same on the device backend, every planner call a replay of
-      the graph a captured;
+      the graph a captured, and K6 run 32 times a call (the others once,
+      the ego once a plan step; a replay counts the launches it runs);
 9. the scenario-generation pipeline through the port's entry point,
    ``strive_tpu_torch.scripts.adv_scenario_gen.main``:
    a. the records of K1 at prior sampling's shape (1 scene x 20 samples x
@@ -249,7 +260,8 @@ the order they run (the numbers are the order they were added in):
       warm-up run and 5 timed runs of 5 iterations and a final decode);
    b. ``scripts.bench_closed_loop`` in its device-planner mode
       (``STRIVE_BENCH_MODES=fused``) at k = 1 and 2, 5 iterations a run:
-      its line, and exact K1 and K2 launches (4 runs);
+      its line, and exact K1 and K2 launches (4 runs), and K6's, 32 a
+      planner call;
    c. ``scripts.study_yield`` (points closed and open loop at 20
       iterations) and ``scripts.study_refresh_quality`` (``--ks 1 2
       --skip_perf``) side by side in two processes, both on 9c's trained
@@ -272,9 +284,10 @@ the order they run (the numbers are the order they were added in):
    library yardstick's other timings and differences), and ``launches``,
    counted on the path that ``path`` names: the open-loop main path for K1
    and K2, the gather-probe path for K3 and K4, the Mosaic-bisect probes
-   for K5 (K3-K5 launch 0 times on the main path:
-   ``main_path_launches``); every entry's ``closed_loop_launches`` is its
-   count in one closed-loop run of 6b c and d; K1's and K2's
+   for K5, 6b d's closed loop for K6 (K3-K6 launch 0 times on the main
+   path: ``main_path_launches``); every entry's ``closed_loop_launches``
+   is its count in one closed-loop run of 6b c and d; K6's ``cell_shape``
+   its record at ``adv_closed_b4``'s shape (6b a); K1's and K2's
    ``pipeline_launches`` their counts in 9c and ``pipeline_shape`` their
    9a records; ``refine_shape`` and ``training_shape`` their 10a records,
    ``refine_launches`` their counts in 10c's Adam run and
@@ -976,11 +989,170 @@ def compare_futures(np, state_norm, got, want, tol_m, tol_rad, label):
             "flipped_scenes": flipped}
 
 
-def closed_loop_phase(torch, np, tm, model, scene, store, norm, counters):
+# the others' poses of one planner call in adv_closed_b4, a map (4 scenes
+# on the four maps x 31 plan times x 15 agents = 1,860): K6's cell record
+CELL_MATCH_POSES = 465
+
+
+def match_launches_per_call(cfg):
+    """K6 runs in one device-planner call of the closed loop (FT steps of
+    ``bench_closed_loop.DT``, planner config ``cfg``): one for the other
+    agents, batched over every plan time, and one an ego plan step."""
+    from strive_tpu_torch.scripts.bench_closed_loop import DT
+
+    return 1 + int(round(DT * FT / cfg.dt)) + 1
+
+
+def plain_reps(x, y, h, mid, tab, cfg, MC):
+    """K6's plain version: ``_cluster_reps`` of ``_match_edges``."""
+    from strive_tpu_torch.planners import device_planner as dp
+
+    return dp._cluster_reps(*dp._match_edges(x, y, h, mid, tab, cfg),
+                            cfg._replace(MC=MC))
+
+
+def same_reps(got, want, where):
+    """Raise unless K6's (reps, rep_valid) equal the plain version's."""
+    for g, w, name in zip(got, want, ("reps", "rep_valid")):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{where}: K6 {name} {g.dtype} {g.shape}, "
+                                 f"plain {w.dtype} {w.shape}")
+        bad = (g != w).reshape(g.shape[0], -1).any(1)
+        if bool(bad.any()):
+            raise AssertionError(f"{where}: K6 {name} differs from its plain "
+                                 f"version at {int(bad.sum())} poses")
+
+
+def lane_match_work(np, tab, mid, MC):
+    """(bytes, float ops, pose-edge pairs) of one K6 call: the edges of the
+    maps its poses are on read once, its poses (x, y, cos, sin, map id)
+    and the offsets read once, its (N, MC) ids and flags written once; 4
+    float ops a pair of a pose and an edge of its own map, the heading test
+    every pair needs (the distance follows for the few that pass it)."""
+    off = tab.edge_offsets.cpu().numpy()
+    n_edges = np.diff(off)
+    m = mid.cpu().numpy()
+    m = m[(m >= 0) & (m < len(n_edges))]
+    pairs = int(n_edges[m].sum())
+    N = mid.shape[0]
+    nbytes = (int(n_edges[np.unique(m)].sum()) * 20 + off.size * 8
+              + N * (4 * 4 + 8) + N * MC * (8 + 1))
+    return nbytes, 4 * pairs, pairs
+
+
+def lane_match_record(torch, np, rates, tab, cfg, x, y, h, mid, MC):
+    """K6 on the poses (x, y, h, mid) with ``MC`` rounds: equal to its
+    plain version, then its ms (the kernel alone, cos and sin made before)
+    beside the plain version's and its bound."""
+    from strive_tpu_torch.planners import lane_match as lm
+    from strive_tpu_torch.utils.timing import cuda_ms
+
+    c, s = torch.cos(h), torch.sin(h)
+
+    def kernel():
+        return lm.lane_match(x, y, c, s, mid, tab.edge_offsets, tab.edges,
+                             cfg.cdistmax, cfg.xydistmax, cfg.dedupe_r, MC)
+
+    same_reps(kernel(), plain_reps(x, y, h, mid, tab, cfg, MC), "K6 record")
+    nbytes, flops, pairs = lane_match_work(np, tab, mid, MC)
+    out = {"poses": int(mid.shape[0]), "MC": MC,
+           "edges": int(tab.edges.shape[0]), "own_map_pairs": pairs,
+           "ms": cuda_ms(kernel, 200),
+           "plain_ms": cuda_ms(lambda: plain_reps(x, y, h, mid, tab, cfg,
+                                                  MC), 3)}
+    out["bound_ms"], out["bound_by"] = bound_ms(rates, nbytes, flops)
+    torch.cuda.empty_cache()  # the plain version's (N, E) temporaries
+    return out
+
+
+def cell_match_case(torch, np, dev):
+    """The lane graph of adv_closed_b4 (``benchmark/inputs/lanes.py`` on
+    its config's four maps) as device tables, and ``CELL_MATCH_POSES``
+    poses a map: three in four within a few metres of a random edge with
+    its heading turned by up to ~0.15 rad, the rest anywhere over the
+    map's lanes with any heading.
+
+    :return: tables, planner config, (x, y, h, mid) on ``dev``"""
+    from benchmark.harness import BENCH, load_json
+    from benchmark.inputs import lanes
+    from strive_tpu_torch.planners import PLANNER_CONFIGS, PlannerConfig
+    from strive_tpu_torch.planners import device_planner as dp
+
+    st = load_json(BENCH / "configs" / "strive_adv_rule_nusc.json")["store"]
+    gs = lanes.graphs(st)
+    cfg = dp.StaticPlanCfg.from_planner_config(
+        PlannerConfig(**PLANNER_CONFIGS["default"]))
+    tab = dp.DeviceTables.from_graphs(gs, st["maps"], cfg, dev)
+    rng = np.random.default_rng(0)
+    n, near = CELL_MATCH_POSES, 3 * CELL_MATCH_POSES // 4
+    xs, ys, hs = [], [], []
+    for name in st["maps"]:
+        e = np.asarray(gs[name]["edges"], np.float64)
+        i = rng.integers(0, len(e), near)
+        t = rng.uniform(0.0, 1.0, near) * e[i, 4]
+        xs += [e[i, 0] + t * e[i, 2] + rng.normal(0, 1.0, near),
+               rng.uniform(e[:, 0].min(), e[:, 0].max(), n - near)]
+        ys += [e[i, 1] + t * e[i, 3] + rng.normal(0, 1.0, near),
+               rng.uniform(e[:, 1].min(), e[:, 1].max(), n - near)]
+        hs += [np.arctan2(e[i, 3], e[i, 2]) + rng.normal(0, 0.15, near),
+               rng.uniform(-np.pi, np.pi, n - near)]
+    x, y, h = (torch.as_tensor(np.concatenate(v), dtype=torch.float32,
+                               device=dev) for v in (xs, ys, hs))
+    mid = torch.arange(len(st["maps"]), device=dev).repeat_interleave(n)
+    return tab, cfg, (x, y, h, mid)
+
+
+def lane_match_phase(torch, np, rates, card, seen):
+    """Phase 6b a's K6 checks and record (module doc): the lane match's
+    inputs ``seen`` in the card planner's eager call, (x, y, h, mid, MC)
+    a call, in order.
+
+    :return: K6's ``kernels`` entry but its launches"""
+    from strive_tpu_torch.planners import device_planner as dp
+
+    cfg, tab = card.cfg, card.tables
+    T_all = match_launches_per_call(cfg) - 1
+    shapes = [(int(v[0].shape[0]), v[4]) for v in seen]
+    want = [(B * T_all * (NA - 1), cfg.MC)] + [(B, 1)] * T_all
+    if shapes != want:
+        raise AssertionError(f"a. the planner matched {shapes}, expected "
+                             f"{want} (N, MC) a call")
+    for x, y, h, mid, MC in seen:
+        same_reps(dp._match_reps(x, y, h, mid, tab, cfg, MC),
+                  plain_reps(x, y, h, mid, tab, cfg, MC), "a. K6")
+    x, y, h, mid, MC = seen[0]
+    entry = dict(
+        name="lane_match", route="cuda",
+        source="strive_tpu_torch/csrc/lane_match.cu",
+        replaces="no TPU kernel: strive_tpu's planner matches in plain XLA",
+        max_abs_err=0.0, cases=len(seen) + 2,
+        **lane_match_record(torch, np, rates, tab, cfg, x, y, h, mid, MC),
+        library_ms=None,
+        library="none: no library call computes a masked closest-first "
+                "argmin with spatial dedupe; the plain version is torch's "
+                "own elementwise and reduce kernels (plain_ms)")
+    ctab, ccfg, (x, y, h, mid) = cell_match_case(torch, np, x.device)
+    same_reps(dp._match_reps(x, y, h, mid, ctab, ccfg, 1),
+              plain_reps(x, y, h, mid, ctab, ccfg, 1), "a. K6 cell, MC 1")
+    entry["cell_shape"] = lane_match_record(torch, np, rates, ctab, ccfg, x,
+                                            y, h, mid, ccfg.MC)
+    del ctab
+    torch.cuda.empty_cache()
+    log(f"a. K6 lane_match equal to its plain version on the planner's "
+        f"{len(seen)} calls ({shapes[0]} and {T_all} x {shapes[1]}) and at "
+        f"the cell's shape; {entry['ms']:.4f} ms (plain "
+        f"{entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.5f} ms by "
+        f"{entry['bound_by']}); cell shape {entry['cell_shape']}")
+    return entry
+
+
+def closed_loop_phase(torch, np, tm, model, scene, store, norm, counters,
+                      rates):
     """Phase 6b: the closed loop (module doc, a-d).
 
     :return: the ``closed_loop`` JSON line's dict (card excluded), the
-        launch counts of a full-width closed-loop run"""
+        launch counts of a full-width closed-loop run, K6's ``kernels``
+        entry but its launches"""
     from strive_tpu_torch.normalize import (att_normalizer_for,
                                             state_normalizer_for)
     from strive_tpu_torch.optim.adv import run_adv_gen_optim
@@ -1008,7 +1180,18 @@ def closed_loop_phase(torch, np, tm, model, scene, store, norm, counters):
     host_fn = bcl.host_planner_fn(scene, lg, names, sn, an)
     card_fn, cpu_fn = (p.make_fn(sn, bcl.DT, FT) for p in (card, cpu))
     fut = scene.future_gt[..., :4]
-    on_card = card_fn(fut)
+    # the first call runs eagerly: K6's inputs recorded on the way
+    seen, match_reps = [], dp._match_reps
+
+    def recording(x, y, h, mid, tab, cfg, MC):
+        seen.append((x.clone(), y.clone(), h.clone(), mid.clone(), MC))
+        return match_reps(x, y, h, mid, tab, cfg, MC)
+
+    dp._match_reps = recording
+    try:
+        on_card = card_fn(fut)
+    finally:
+        dp._match_reps = match_reps
     if on_card.device.type != "cuda":
         raise AssertionError("the device planner ran off the card")
     out["card_vs_host"] = compare_futures(
@@ -1030,6 +1213,7 @@ def closed_loop_phase(torch, np, tm, model, scene, store, norm, counters):
                              "planner's calls 2-3 replayed, expected 2")
     log("a. the card planner's calls 2-3, replays of its CUDA graph, equal "
         "its first bit for bit")
+    k6 = lane_match_phase(torch, np, rates, card, seen)
 
     # --- b. a small closed loop, card against CPU -------------------------
     small_lg = bcl.lanegraph(extent_m=64.0, spacing_m=16.0)
@@ -1071,6 +1255,9 @@ def closed_loop_phase(torch, np, tm, model, scene, store, norm, counters):
         expected = {k: 0 for k in got}
         expected.update({"map_crop": 1 + FT * CL_ITERS + FT,
                          "footprint_coll_point": CL_ITERS + 1})
+        if backend == "device":  # replays count the launches they run
+            expected["lane_match"] = calls * match_launches_per_call(
+                card.cfg)
         if got != expected:
             raise AssertionError(f"{backend} closed loop: launches {got}, "
                                  f"expected {expected}")
@@ -1087,7 +1274,7 @@ def closed_loop_phase(torch, np, tm, model, scene, store, norm, counters):
                         "planner_calls": calls, "planner_replays": replays}
         log(f"{backend} closed loop: {CL_ITERS} iterations, losses "
             f"{losses[0]:.4f} -> {losses[-1]:.4f}, launches {got}")
-    return out, launches
+    return out, launches, k6
 
 
 PIPE_CFG = "configs/adv_gen_synth_hc_prod.cfg"  # the full-width pipeline
@@ -2471,6 +2658,8 @@ def studies_phase(card, counters):
     import re
     import shutil
 
+    from strive_tpu_torch.planners import PLANNER_CONFIGS, PlannerConfig
+    from strive_tpu_torch.planners import device_planner as dp
     from strive_tpu_torch.scripts import bench, bench_closed_loop
 
     line = {"studies": "bench, bench_closed_loop, study_yield, "
@@ -2495,15 +2684,20 @@ def studies_phase(card, counters):
 
     # --- b. the closed-loop bench, device planner, k = 1 and 2 -----------
     line["closed_loop_bench"] = {}
+    cfg = dp.StaticPlanCfg.from_planner_config(
+        PlannerConfig(**PLANNER_CONFIGS["default"]))
     for k in (1, 2):
         zero(counters)
+        calls = dp.COUNTS["calls"]
         out = harness_lines(bench_closed_loop.main, {
             "STRIVE_BENCH_ITERS": str(HARNESS_ITERS),
             "STRIVE_BENCH_MODES": "fused", "STRIVE_BENCH_REFRESH": str(k)})
         launches = counted(counters)
         expected = {k2: 0 for k2 in launches}
         expected.update({"map_crop": 1 + 4 * FT * (HARNESS_ITERS + 1),
-                         "footprint_coll_point": 4 * (HARNESS_ITERS + 1)})
+                         "footprint_coll_point": 4 * (HARNESS_ITERS + 1),
+                         "lane_match": (dp.COUNTS["calls"] - calls)
+                         * match_launches_per_call(cfg)})
         m = re.match(r"device: \d+ closed-loop iters in [\d.]+s \([\d.]+ "
                      r"it/s", out[0]) if len(out) == 1 else None
         if m is None or launches != expected:
@@ -2605,6 +2799,7 @@ def main():
     from strive_tpu_torch.normalize import (att_normalizer_for,
                                             state_normalizer_for)
     from strive_tpu_torch.optim.adv import run_adv_gen_optim
+    from strive_tpu_torch.planners import lane_match
     from strive_tpu_torch.scene import pad_scene_arrays
     from strive_tpu_torch.scripts.bench import WEIGHTS
     from strive_tpu_torch.probes import bisect_kernels, window_kernels
@@ -2617,7 +2812,7 @@ def main():
 
     # --- 2. build, TF32 off ------------------------------------------------
     build.build([crop_kernel.SOURCE, window_kernels.SOURCE,
-                 bisect_kernels.SOURCE])
+                 bisect_kernels.SOURCE, lane_match.SOURCE])
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -2737,17 +2932,19 @@ def main():
     model = build_model(torch, tm, norm, MAP_PX)
     counters = (crop_kernel.LAUNCHES, window_kernels.LAUNCHES,
                 bisect_kernels.LAUNCHES)
-    zero(counters)
+    # K6 counted where the device planner's runs are worked out: 6, 6b, 15
+    planner_counters = counters + (lane_match.LAUNCHES,)
+    zero(planner_counters)
     with torch.no_grad():
         emb = model.embed(scene, store)
     z, result, _, _, losses, _ = run_optim(run_adv_gen_optim, model, scene,
                                            store, emb, ITERS)
     torch.cuda.synchronize()
-    launches = counted(counters)
+    launches = counted(planner_counters)
     expected = {"map_crop": 1 + FT * ITERS + FT,
                 "footprint_coll_point": ITERS + 1,
                 **dict.fromkeys(window_kernels.LAUNCHES, 0),
-                **dict.fromkeys(bisect_kernels.LAUNCHES, 0)}
+                **dict.fromkeys(bisect_kernels.LAUNCHES, 0), "lane_match": 0}
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
     if losses.shape != (ITERS,) or not bool(torch.isfinite(losses).all()):
@@ -2763,8 +2960,12 @@ def main():
         entry["path"] = "main path (embed + open-loop adv optimization)"
 
     # --- 6b. the closed loop ------------------------------------------------
-    closed_loop, cl_launches = closed_loop_phase(
-        torch, np, tm, model, scene, store, norm, counters)
+    closed_loop, cl_launches, k6 = closed_loop_phase(
+        torch, np, tm, model, scene, store, norm, planner_counters, rates)
+    kernels["lane_match"] = dict(
+        k6, launches=cl_launches["lane_match"],
+        path="closed loop (6b d: the device planner, every call a replay "
+             "of its CUDA graph)", main_path_launches=launches["lane_match"])
     for k, entry in kernels.items():
         entry["closed_loop_launches"] = cl_launches[k]
 
@@ -2801,7 +3002,7 @@ def main():
     kernels.update(bisect_entries)
 
     # --- 15. the harnesses and the studies --------------------------------
-    studies = studies_phase(card, counters)
+    studies = studies_phase(card, planner_counters)
     print(json.dumps(probes))
     print(json.dumps(bisect))
     print(json.dumps({"closed_loop": {**closed_loop, "card": card}}))

@@ -4,10 +4,13 @@
 A fixed-shape reimplementation of the reference ``HardcodeNuscPlanner``
 (``planners/hardcode_goalcond_nusc.py:65-276``) that keeps the closed-loop
 planner on the card. Its bounded approximations are those of the JAX
-planner (see that module's docstring): dense lane matching over all edges,
-closest-first spatial dedupe into MC cluster slots, greedy branch-coded
-edge walks of static length, a static warp grid, and the speed >= 0
-clamp of PARITY.md §16.
+planner (see that module's docstring): closest-first spatial dedupe into
+MC cluster slots, greedy branch-coded edge walks of static length, a
+static warp grid, and the speed >= 0 clamp of PARITY.md §16. On the CPU
+the lane match is the JAX planner's dense one, every pose against every
+stacked edge; on a card it is one kernel (``planners/lane_match.py``)
+that scans each pose's own map's edges and picks the same
+representatives.
 
 Layout on the card:
 
@@ -27,6 +30,12 @@ Layout on the card:
   graph of :func:`plan_rollout` (:class:`DeviceRulePlanner`): the same
   kernels, launched by one graph launch in place of ~12,500 from Python
   (nothing in a rollout reads a value back to the host);
+- the lane match and its closest-first representatives
+  (:func:`_match_reps`) are one launch of ``csrc/lane_match.cu`` on a
+  card, in place of some thirty passes over (poses, stacked edges)
+  temporaries; on the CPU the plain functions :func:`_match_edges` and
+  :func:`_cluster_reps` compute them, and the card tests hold the two
+  equal bit for bit;
 - interpolation finds its interval with ``torch.searchsorted`` and reads
   the knots with gathers. The JAX planner's one-hot matmuls and dense
   compare-sums only avoid TPU gathers; they give the same interval
@@ -46,14 +55,21 @@ import torch
 from ..maps.queries import linspace
 from ..utils.spans import span
 from .hardcode import LANE_DS, LANE_SIG, SBUFFER, PlannerConfig
+from .lane_match import LAUNCHES as MATCH_LAUNCHES, lane_match
 
 BIG = 1e9
 
-# the planner's work, counted on the host where it is issued: rollouts,
-# the pose-edge pairs that ``_match_edges`` computes over the stacked
-# tables, and the rollouts served by replaying a captured CUDA graph
-# (``DeviceRulePlanner``; a capture is not a rollout)
-COUNTS = {"calls": 0, "match_pairs": 0, "replays": 0}
+# the planner's work, counted on the host where it is issued: rollouts;
+# the pose-edge pairs that the lane match computes (on the CPU counted by
+# ``_match_edges``, every pose against every stacked edge; on a card not
+# counted but worked out per call by ``DeviceRulePlanner`` from the poses
+# matched, the map ids it was reset with and each map's edge count: each
+# pose against its own map's edges, as the kernel scans them); the poses
+# matched (``_match_reps``), and those of them the kernel served; and the
+# rollouts served by replaying a captured CUDA graph (``DeviceRulePlanner``;
+# a capture is not a rollout)
+COUNTS = {"calls": 0, "match_pairs": 0, "matches": 0, "kernel_matches": 0,
+          "replays": 0}
 
 # Branch codes (b1, b2): successor index taken at the first/second fork of
 # a forward walk (reference expand_verts :379-414; PARITY.md §12 bounds
@@ -135,24 +151,29 @@ class DeviceTables(NamedTuple):
     planaccfacs: torch.Tensor  # (F,) float32
     predsfacs: torch.Tensor    # (NSF,) float32
     predafacs: torch.Tensor    # (NAF,) float32
+    edge_offsets: torch.Tensor  # (n_maps + 1,) int64: map m's first edge
 
     @classmethod
     def from_graphs(cls, lane_graphs, map_names, cfg: "StaticPlanCfg",
                     device):
         """The tables of the maps ``map_names``, built on ``device`` map
-        by map (:func:`_map_tables`) and stacked on one edge axis, with
-        each edge's map id in ``emap``: lane matching masks the other
-        maps' edges, so one table serves scenes on different maps (the
-        walks need no offsets: they hold polylines, and adjacency never
-        crosses maps)."""
+        by map (:func:`_map_tables`) and stacked on one edge axis, map m's
+        edges contiguous from ``edge_offsets[m]``, with each edge's map id
+        in ``emap``: the plain lane match masks the other maps' edges and
+        the kernel scans the pose's map's range alone, so one table serves
+        scenes on different maps (the walks need no offsets: they hold
+        polylines, and adjacency never crosses maps)."""
         parts = [_map_tables(lane_graphs[m], device) for m in map_names]
         arrays = {f: torch.cat([p[f] for p in parts])
                   for f in ("edges", "distc_f", "chainxy_f", "chain0xy_f",
                             "chain0xy_b")}
+        counts = [p["edges"].shape[0] for p in parts]
         arrays["emap"] = torch.cat([
-            torch.full((p["edges"].shape[0],), m, dtype=torch.int64,
-                       device=device) for m, p in enumerate(parts)])
-        for f in cls._fields[6:]:
+            torch.full((n,), m, dtype=torch.int64, device=device)
+            for m, n in enumerate(counts)])
+        arrays["edge_offsets"] = torch.as_tensor(
+            np.cumsum([0] + counts), dtype=torch.int64, device=device)
+        for f in ("planaccfacs", "predsfacs", "predafacs"):
             arrays[f] = torch.as_tensor(
                 np.asarray(getattr(cfg, f), np.float32), device=device)
         return cls(**arrays)
@@ -400,6 +421,24 @@ def _cluster_reps(ok, cx, cy, dist, cfg: StaticPlanCfg):
     return torch.stack(reps, 1), torch.stack(rep_valid, 1)
 
 
+def _match_reps(x, y, h, mid, tab: DeviceTables, cfg: StaticPlanCfg, MC):
+    """The first ``MC`` closest-first representatives of (N,) poses:
+    reps (N, MC) stacked edge ids, rep_valid (N, MC). On a card one launch
+    of the lane-match kernel, which scans each pose's own map's edges; on
+    any other device the plain :func:`_cluster_reps` of
+    :func:`_match_edges`, which the kernel equals bit for bit."""
+    N = x.shape[0]
+    COUNTS["matches"] += N
+    if not x.is_cuda:
+        return _cluster_reps(*_match_edges(x, y, h, mid, tab, cfg),
+                             cfg._replace(MC=MC))
+    COUNTS["kernel_matches"] += N
+    return lane_match(x.contiguous(), y.contiguous(), torch.cos(h),
+                      torch.sin(h), mid.contiguous(), tab.edge_offsets,
+                      tab.edges, cfg.cdistmax, cfg.xydistmax, cfg.dedupe_r,
+                      MC)
+
+
 def _route_spline(xys, ix0, x, y, h, cfg: StaticPlanCfg):
     """Polylines -> warped arc-length spline knots (reference :433-556).
 
@@ -479,8 +518,7 @@ def _agent_splines(x, y, h, mid, tab: DeviceTables, cfg: StaticPlanCfg):
     branch), with the constant-heading fallback when nothing matched."""
     N = x.shape[0]
     MC, NBR = cfg.MC, cfg.NBR
-    ok, cx, cy, dist = _match_edges(x, y, h, mid, tab, cfg)
-    reps, rep_valid = _cluster_reps(ok, cx, cy, dist, cfg)   # (N, MC)
+    reps, rep_valid = _match_reps(x, y, h, mid, tab, cfg, MC)  # (N, MC)
     ci = torch.arange(NBR, device=x.device)
     # a representative is always an edge id (an argmin over the edges), so
     # its coded walks are row reads of the host-built polylines
@@ -563,13 +601,12 @@ def _boxes2circles(b):
 
 
 def _ego_spline(x, y, h, mid, tab: DeviceTables, cfg: StaticPlanCfg):
-    """Ego route spline: globally closest match (first edge on a tie),
-    branch-0 walk — slot 0 of :func:`_agent_splines` — with the
-    constant-heading fallback. (B,) poses -> (B, G), (B, G, 4), (B,)."""
-    ok, _, _, dist = _match_edges(x, y, h, mid, tab, cfg)
-    d = torch.where(ok, dist, BIG)
-    dmin, rep = torch.min(d, dim=1)
-    has = dmin < BIG
+    """Ego route spline: globally closest match (first edge on a tie: the
+    first round of :func:`_match_reps`), branch-0 walk — slot 0 of
+    :func:`_agent_splines` — with the constant-heading fallback. (B,)
+    poses -> (B, G), (B, G, 4), (B,)."""
+    reps, rep_valid = _match_reps(x, y, h, mid, tab, cfg, 1)
+    rep, has = reps[:, 0], rep_valid[:, 0]
     bwd = tab.chain0xy_b[rep]
     xys = torch.cat([bwd.flip(-2), tab.chain0xy_f[rep]], -2)
     t2, vals = _route_spline(xys, bwd.shape[-2] - 1, x, y, h, cfg)
@@ -812,14 +849,16 @@ def _call(fn, tab, cfg, args, Tsteps):
 
 class _CapturedRollout:
     """One call of a rollout function captured as a CUDA graph on the
-    current device: its own input buffers and output, and the pose-edge
-    pairs that the captured call counted. Replaying reads the lane tables
-    by the addresses they had at capture, so it lives no longer than
-    their planner."""
+    current device: its own input buffers and output, and the work that
+    the captured call counted (``COUNTS`` but its calls and replays, and
+    the lane-match kernel's ``LAUNCHES``). A capture launches nothing and
+    counts nothing; each replay runs, and counts, what was captured.
+    Replaying reads the lane tables by the addresses they had at capture,
+    so it lives no longer than their planner."""
 
     def __init__(self, fn, tab, cfg, args, Tsteps):
         self.inputs = [a.clone() for a in args]
-        before = dict(COUNTS)
+        before, launched = dict(COUNTS), dict(MATCH_LAUNCHES)
         self.graph = torch.cuda.CUDAGraph()
         try:
             # ``torch.cuda.graph`` synchronizes and returns the allocator's
@@ -828,8 +867,12 @@ class _CapturedRollout:
             with torch.cuda.graph(self.graph):
                 self.out = _call(fn, tab, cfg, self.inputs, Tsteps)
         finally:
-            self.pairs = COUNTS["match_pairs"] - before["match_pairs"]
+            self.counted = {k: COUNTS[k] - before[k] for k in COUNTS
+                            if k not in ("calls", "replays")}
+            self.launches = {k: MATCH_LAUNCHES[k] - launched[k]
+                             for k in MATCH_LAUNCHES}
             COUNTS.update(before)  # a capture is not a rollout
+            MATCH_LAUNCHES.update(launched)
 
     def __call__(self, args):
         """Replay on ``args``; the output is overwritten by the next
@@ -838,9 +881,21 @@ class _CapturedRollout:
             buf.copy_(a)
         self.graph.replay()
         COUNTS["calls"] += 1
-        COUNTS["match_pairs"] += self.pairs
         COUNTS["replays"] += 1
+        for k, n in self.counted.items():
+            COUNTS[k] += n
+        for k, n in self.launches.items():
+            MATCH_LAUNCHES[k] += n
         return self.out
+
+
+def own_map_pairs(map_edges, map_idx, poses_per_scene):
+    """The pose-edge pairs that the lane-match kernel computes when every
+    scene b matches ``poses_per_scene`` poses, each against the edges of
+    its map ``map_idx[b]`` (``map_edges``: each map's edge count; a map id
+    outside them has none)."""
+    return poses_per_scene * sum(map_edges[m] for m in map_idx
+                                 if 0 <= m < len(map_edges))
 
 
 class DeviceRulePlanner:
@@ -861,6 +916,12 @@ class DeviceRulePlanner:
     graph's buffers; a new key drops the graph and its memory pool and
     starts again. What a call returns is always a new tensor. On the CPU
     every call runs eagerly.
+
+    On a card each call's lane-match pairs (``COUNTS["match_pairs"]``)
+    are worked out on the host, not counted: the poses the call matched,
+    as many a scene, each against its own map's edges (the map ids of
+    ``reset``, each map's edge count from the tables' ``edge_offsets``),
+    as the kernel scans them.
     """
 
     def __init__(self, lane_graphs, map_names, cfg, device="cuda"):
@@ -872,7 +933,10 @@ class DeviceRulePlanner:
         self.cfg = StaticPlanCfg.from_planner_config(base)
         self.tables = DeviceTables.from_graphs(lane_graphs, self.map_names,
                                                self.cfg, self.device)
+        self.map_edges = np.diff(
+            self.tables.edge_offsets.cpu().numpy()).tolist()
         self.state = None
+        self._mids = None    # reset's map ids, on the host
         self._key = None     # the last CUDA call's key
         self._graph = None   # its _CapturedRollout, from its second call
 
@@ -894,6 +958,7 @@ class DeviceRulePlanner:
             "mask": self._on_device(mask, torch.bool),
             "map_idx": self._on_device(map_idx, torch.int64),
         }
+        self._mids = self.state["map_idx"].tolist()
 
     def _plan(self, args, Tsteps):
         """:func:`plan_rollout` on ``args`` (see :func:`_call`): eager on
@@ -901,6 +966,23 @@ class DeviceRulePlanner:
         fn = plan_rollout  # as the module names it now
         if self.device.type != "cuda":
             return _call(fn, self.tables, self.cfg, args, Tsteps)
+        matched = COUNTS["matches"]
+        out = self._plan_cuda(fn, args, Tsteps)
+        # plan_rollout matches as many poses for every scene
+        per_scene, rest = divmod(COUNTS["matches"] - matched,
+                                 len(self._mids))
+        if rest:
+            raise RuntimeError(
+                f"{COUNTS['matches'] - matched} poses matched over "
+                f"{len(self._mids)} scenes: not as many a scene, so the "
+                "own-map pairs cannot be worked out")
+        COUNTS["match_pairs"] += own_map_pairs(self.map_edges, self._mids,
+                                               per_scene)
+        return out
+
+    def _plan_cuda(self, fn, args, Tsteps):
+        """``fn`` on ``args`` on the card: eager for a new key, else
+        through the key's CUDA graph (class doc)."""
         key = (fn, Tsteps) + tuple((a.shape, a.dtype) for a in args)
         with torch.cuda.device(self.device):
             if key != self._key:

@@ -13,15 +13,21 @@ at an eighth of their extents, lanes every 64 m.
 - ``device_planner.COUNTS``: a call a refresh and one for the final
   decode, and the pose-edge pairs of the lane match: every agent's pose
   at every one of a call's 31 plan steps against every stacked edge; on
-  the CPU no call replays a CUDA graph.
+  the CPU every pose is matched by the plain functions, none by the
+  kernel, and no call replays a CUDA graph. On a card the planner counts
+  each scene's poses against its own map's edges: 186,484,096 pairs a
+  call at the cell's shapes. A replay (a stand-in for the CUDA graph on
+  the CPU) counts the work its capture counted.
 - ``plan_rollout`` can be captured in a CUDA graph: one call at the
   cell's scene layout runs no operation that reads a value to the host,
   and makes every tensor on its inputs' device (on the CPU and on
   ``meta``, where no value exists to read).
 - The reader ``planner_replay_share.closed`` reads ``replays`` over
-  ``calls``, and nothing without the counter.
+  ``calls``, and ``planner_match_kernel_share.closed`` ``kernel_matches``
+  over ``matches``; each nothing without its counters.
 """
 
+import contextlib
 import math
 from types import SimpleNamespace
 
@@ -32,11 +38,13 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 from benchmark.drivers import closed
-from benchmark.harness import Run
+from benchmark.harness import BENCH, Run, load_json
+from benchmark.inputs import lanes
 from benchmark.run import load_metric
 from benchmark.planner_faults import FAULTS, fault
 from benchmark.tests import tiny
 from strive_tpu_torch.planners import device_planner as dp
+from strive_tpu_torch.planners import lane_match
 from strive_tpu_torch.utils import spans
 
 CELL = "adv_closed_b4"
@@ -159,6 +167,70 @@ def test_match_pair_counts(program):
     assert got["match_pairs"] == calls * steps * B * NA * sum(E.values())
 
 
+def test_cpu_poses_matched_by_the_plain_functions(program):
+    before = dict(dp.COUNTS)
+    _one_batch(program, iters=3)
+    got = {k: v - before[k] for k, v in dp.COUNTS.items()}
+    B, NA = program.cfg["batch_size"], program.cfg["max_agents"]
+    assert got["matches"] == 4 * 31 * B * NA  # 4 calls of 31 plan steps
+    assert got["kernel_matches"] == 0
+
+
+def test_own_map_pairs_at_the_cell_shapes():
+    """The pairs the kernel computes a call in ``adv_closed_b4``: scene j
+    on map j (of 4), each scene's 16 agents at 31 plan steps (the others
+    batched, the ego step by step) against its map's edges."""
+    cfg = load_json(BENCH / "configs" / "strive_adv_rule_nusc.json")
+    st = cfg["store"]
+    edges = [lanes.edge_count(min(st["extents_m"][m]), st["spacing_m"],
+                              cfg["lane_graph"]["res_m"]) for m in st["maps"]]
+    assert sum(edges) == 375_976
+    B, NA = cfg["batch_size"], cfg["max_agents"]
+    mids = [j % len(edges) for j in range(B)]
+    assert dp.own_map_pairs(edges, mids, 31 * NA) == 186_484_096
+    # a map id outside the tables has no edges to scan
+    assert dp.own_map_pairs(edges, [0, 4, -1], 10) == 10 * edges[0]
+
+
+class _StandInGraph:
+    """``torch.cuda.CUDAGraph`` on the CPU: capture runs the call once,
+    a replay runs nothing."""
+
+    def replay(self):
+        pass
+
+
+def test_replay_counts_what_its_capture_counted(monkeypatch):
+    monkeypatch.setitem(lane_match.LAUNCHES, "lane_match", 0)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StandInGraph)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda g: contextlib.nullcontext())
+
+    def rollout(tab, cfg, init_state, *a):
+        dp.COUNTS["calls"] += 1
+        dp.COUNTS["match_pairs"] += 5
+        dp.COUNTS["matches"] += 7
+        dp.COUNTS["kernel_matches"] += 3
+        lane_match.LAUNCHES["lane_match"] += 2
+        return init_state * 2
+
+    args = [torch.ones(2, 3, 4)] + [torch.zeros(1)] * 5
+    before = dict(dp.COUNTS)
+    launched = lane_match.LAUNCHES["lane_match"]
+    graph = dp._CapturedRollout(rollout, None, None, args, 30)
+    # a capture is not a rollout, and launches nothing
+    assert dp.COUNTS == before
+    assert lane_match.LAUNCHES["lane_match"] == launched
+    for _ in range(3):
+        out = graph([a + 1 for a in args])
+    got = {k: v - before[k] for k, v in dp.COUNTS.items()}
+    assert got == {"calls": 3, "match_pairs": 15, "matches": 21,
+                   "kernel_matches": 9, "replays": 3}
+    # each replay runs the captured launches
+    assert lane_match.LAUNCHES["lane_match"] - launched == 6
+    assert torch.equal(out, torch.full((2, 3, 4), 2.0))  # the capture's
+
+
 def test_cpu_planner_takes_no_graph(program):
     before = dict(dp.COUNTS)
     _one_batch(program, iters=3)
@@ -228,5 +300,22 @@ def test_replay_share_reader(monkeypatch):
     assert read(traced) == 20 / 21
     assert read(SimpleNamespace(profile=None)) is None
     monkeypatch.setattr(dp, "COUNTS", {"calls": 0, "match_pairs": 0,
+                                       "replays": 0})
+    assert read(traced) is None
+
+
+def test_match_kernel_share_reader(monkeypatch):
+    read = load_metric("planner_match_kernel_share.closed").read
+    traced = SimpleNamespace(profile={})
+    monkeypatch.setattr(dp, "COUNTS", {"calls": 21, "match_pairs": 7,
+                                       "replays": 20})
+    assert read(traced) is None
+    monkeypatch.setattr(dp, "COUNTS", {"calls": 21, "match_pairs": 7,
+                                       "matches": 40, "kernel_matches": 30,
+                                       "replays": 20})
+    assert read(traced) == 0.75
+    assert read(SimpleNamespace(profile=None)) is None
+    monkeypatch.setattr(dp, "COUNTS", {"calls": 0, "match_pairs": 0,
+                                       "matches": 0, "kernel_matches": 0,
                                        "replays": 0})
     assert read(traced) is None

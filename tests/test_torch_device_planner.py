@@ -24,7 +24,11 @@
   far beyond float noise) has been seen; one would be recorded in
   ROADMAP.md's queue of faults;
 - the searchsorted interpolation against the compare-sum form on knots
-  with repeats, and argmin ties resolving to the first edge.
+  with repeats, and argmin ties resolving to the first edge;
+- the lane match's dispatch: on CPU tensors ``_match_reps`` is the plain
+  ``_cluster_reps(*_match_edges(...))`` (the kernel's wrapper raises on
+  them); each map's edges are contiguous in the stacked tables from
+  ``edge_offsets``, the range the kernel scans.
 """
 
 import copy
@@ -42,6 +46,7 @@ from strive_tpu_torch.normalize import state_normalizer_for
 from strive_tpu_torch.planners import (PLANNER_CONFIGS, PlannerConfig,
                                        RulePlanner)
 from strive_tpu_torch.planners import device_planner as dp
+from strive_tpu_torch.planners import lane_match
 
 GRAPHS = {
     "grid": lambda m: m.synthetic_lanegraph(extent_m=256.0, spacing_m=64.0),
@@ -433,3 +438,85 @@ def test_argmin_ties_pick_the_first_edge():
     t2, vals, has = dp._ego_spline(x, y, h, mid, tab, cfg)
     assert has.item()
     assert abs(vals[0, -1, 1].item()) < 1e-5  # the y = 0 lane's route
+
+
+@pytest.mark.parametrize("MC", [3, 1])
+def test_match_reps_on_the_cpu_is_the_plain_composition(graphs, MC):
+    names = ["grid", "forks", "ring"]
+    cfg = _cfg()
+    tab = dp.DeviceTables.from_graphs(graphs, names, cfg, "cpu")
+    rng = np.random.default_rng(MC)
+    N = 96
+    # near random edges, most on the edge's map, some headed off its lane
+    e = tab.edges.numpy()
+    i = rng.integers(0, e.shape[0], N)
+    t = rng.uniform(0.0, 1.0, N) * e[i, 4]
+    x, y = (torch.as_tensor(e[i, k] + t * e[i, k + 2]
+                            + rng.normal(0.0, 0.7, N), dtype=torch.float32)
+            for k in (0, 1))
+    h = torch.as_tensor(np.arctan2(e[i, 3], e[i, 2])
+                        + rng.normal(0.0, 0.3, N), dtype=torch.float32)
+    mid = tab.emap[i].clone()
+    mid[::8] = torch.as_tensor(rng.integers(-1, 4, 12))
+    before = dict(dp.COUNTS)
+    reps, valid = dp._match_reps(x, y, h, mid, tab, cfg, MC)
+    got = {k: v - before[k] for k, v in dp.COUNTS.items()}
+    assert got["matches"] == N and got["kernel_matches"] == 0
+    assert got["match_pairs"] == N * tab.edges.shape[0]
+    want = dp._cluster_reps(*dp._match_edges(x, y, h, mid, tab, cfg),
+                            cfg._replace(MC=MC))
+    assert reps.shape == (N, MC) and torch.equal(reps, want[0])
+    assert torch.equal(valid, want[1])
+    assert valid[:, 0].any() and not valid[:, 0].all()
+
+
+def test_lane_match_kernel_takes_cuda_tensors_only(lg):
+    tab = _tables(lg)
+    cfg = _cfg()
+    x = torch.zeros(3)
+    mid = torch.zeros(3, dtype=torch.int64)
+    launched = lane_match.LAUNCHES["lane_match"]
+    with pytest.raises(ValueError, match="CUDA"):
+        lane_match.lane_match(x, x, x, x, mid, tab.edge_offsets, tab.edges,
+                              cfg.cdistmax, cfg.xydistmax, cfg.dedupe_r, 3)
+    assert lane_match.LAUNCHES["lane_match"] == launched
+
+
+def test_edge_offsets_bound_each_maps_edges(graphs):
+    names = ["grid", "forks", "ring", "forks"]
+    tab = dp.DeviceTables.from_graphs(graphs, names, _cfg(), "cpu")
+    off = tab.edge_offsets.tolist()
+    assert tab.edge_offsets.dtype == torch.int64
+    assert off[0] == 0 and off[-1] == tab.edges.shape[0]
+    for m, name in enumerate(names):
+        assert off[m + 1] - off[m] == len(graphs[name]["edges"])
+        assert (tab.emap[off[m]:off[m + 1]] == m).all()
+    planner = dp.DeviceRulePlanner(graphs, names, CFG, device="cpu")
+    assert planner.map_edges == np.diff(off).tolist()
+
+
+def test_card_pairs_worked_out_from_the_poses_matched(graphs, monkeypatch):
+    """On a card a call's ``match_pairs`` are each scene's poses against
+    its own map's edges, worked out from the poses the call matched; a
+    call that matched an uneven count a scene raises. The card's call is
+    a stand-in here that only counts its matches."""
+    names = ["grid", "forks", "ring"]
+    planner = dp.DeviceRulePlanner(graphs, names, CFG, device="cpu")
+    planner.device = torch.device("cuda")
+    planner._mids = [2, 0, 2, 5]  # map 5 lies outside the tables
+    matched = []
+
+    def plan_cuda(fn, args, Tsteps):
+        dp.COUNTS["matches"] += matched[-1]
+        return None
+
+    monkeypatch.setattr(planner, "_plan_cuda", plan_cuda)
+    before = dp.COUNTS["match_pairs"]
+    matched.append(4 * 31)
+    planner._plan((), 30)
+    edges = [len(graphs[n]["edges"]) for n in names]
+    assert dp.COUNTS["match_pairs"] - before == 31 * (2 * edges[2]
+                                                      + edges[0])
+    matched.append(4 * 31 + 1)
+    with pytest.raises(RuntimeError, match="as many a scene"):
+        planner._plan((), 30)

@@ -1,7 +1,9 @@
 """The device planner's CUDA graph on the card: every call of a
 ``DeviceRulePlanner`` after the first of its shapes replays one captured
 graph of ``plan_rollout`` (``planners/device_planner.py``), and its plans
-equal the eager ``plan_rollout``'s bit for bit.
+equal the eager ``plan_rollout``'s bit for bit; a replay counts the work
+its capture counted (``device_planner.COUNTS``), and the planner counts
+each call's lane-match pairs.
 
 Needs an NVIDIA GPU; skips elsewhere. Imports no JAX. Run on the card with
 
@@ -133,9 +135,17 @@ def test_replays_equal_eager_calls(lg, norm, dev):
     for i, (g, w) in enumerate(zip(got, want)):
         assert torch.equal(g, w), f"call {i}"
     assert not torch.equal(got[0], got[1])  # the predictions differ
-    assert counts == {"calls": 6, "match_pairs": eager["match_pairs"],
+    # every pose through the lane-match kernel; the planner counts each
+    # call's pairs, a scene's poses against its own map's edges (plan_rollout
+    # called alone counts none)
+    matched = eager["matches"]
+    pairs = dp.own_map_pairs(planner.map_edges, scene[3].tolist(),
+                             matched // 6 // 4)
+    assert counts == {"calls": 6, "match_pairs": 6 * pairs,
+                      "matches": matched, "kernel_matches": matched,
                       "replays": 5}
-    assert eager["calls"] == 6 and eager["replays"] == 0
+    assert eager == {"calls": 6, "match_pairs": 0, "matches": matched,
+                     "kernel_matches": matched, "replays": 0}
 
 
 def test_first_plan_unchanged_by_later_replays(lg, norm, dev):
